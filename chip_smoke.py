@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's auction round on one NVIDIA GPU, end to end.
+"""Run the PyTorch + CUDA port's main paths on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -16,14 +16,30 @@ Phases (any failure exits non-zero and prints no result):
    fused with and without a transform.  Scores and totals must be bit-equal,
    eligibility and selections exactly equal.  Each kernel is timed with CUDA
    events beside its plain version and its bound;
-3. the main path: ``simulate`` of a 16-GPU H100 cluster cut into 64 MIG
+2c. the linear-scan kernel (K5) against its plain version at the mamba
+   prefill's shapes, (1, T, 131072) float32 for T in {1, 37, 512, 1024},
+   with and without h0, the RG-LRU width (1, 512, 4096) and one bfloat16
+   case (2, 256, 8192).  Outputs and final states must be bit-equal;
+3. the auction path: ``simulate`` of a 16-GPU H100 cluster cut into 64 MIG
    slices (3g.40gb + 2g.20gb + 1g.10gb + 1g.10gb per GPU) against a
    backlog of 500 jobs, through the CUDA kernels pipelined and serial and
    through the plain torch versions on the card.  Launch counters are reset
    just before the pipelined run and read just after; commit logs and
    summaries must be identical across the three runs, no backend may be
    marked failed, and a small seeded run on the card must match the same
-   run on the host.
+   run on the host;
+4. the serving path: falcon-mamba-7b at full width (64 layers, d_model
+   4096, bfloat16, vocab 65,024), initialised on the card from a seed,
+   serves 8 seeded greedy requests of 128-1024 prompt tokens and 32 new
+   tokens through ``ServingEngine`` (4 slots, max_seq 2048), once through
+   K5 and once through the plain scan on the card.  Every request must
+   finish, the tokens of the two runs must be identical, so must each
+   prefill's last logits and the cache states it hands to its slot (bit
+   for bit), and K5's counter (reset just before the kernel run) must read
+   64 layers x 8 prefills.  The same traffic is then served once more
+   under torch.profiler, its device time split into prefill and decode
+   and grouped by kernel name.  The reduced config's logits on the card
+   must match the host's.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; runs
@@ -269,8 +285,75 @@ def check_settle_kernel(np, torch, dev, k2, ref, scores):
     }
 
 
+def scan_inputs(torch, dev, b: int, t: int, d: int, dtype, seed: int):
+    """Decays in (0.8, 1), inputs ~ N(0, 0.01), h0 ~ N(0, 1), drawn on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    a = torch.rand((b, t, d), generator=g, device=dev) * 0.199 + 0.8
+    x = torch.randn((b, t, d), generator=g, device=dev) * 0.1
+    h0 = torch.randn((b, d), generator=g, device=dev)
+    return a.to(dtype), x.to(dtype), h0.to(dtype)
+
+
+def check_scan_kernel(torch, dev, k5, ref):
+    """K5 bit-equal to its plain version on every shape; times and bounds."""
+    d_full = 8192 * 16  # falcon-mamba d_inner * ssm_state
+    cases = [(1, t, d_full, torch.float32, h0)
+             for t in (1, 37, 512, 1024) for h0 in (True, False)]
+    cases += [(1, 512, 4096, torch.float32, False),
+              (2, 256, 8192, torch.bfloat16, False)]
+    lib = k5._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for n, (b, t, d, dtype, with_h0) in enumerate(cases):
+        a, x, h0 = scan_inputs(torch, dev, b, t, d, dtype, SEED + 10 + n)
+        h0 = h0 if with_h0 else None
+        out, h_t = k5.linear_scan_cuda(a, x, h0)
+        p_out, p_h = ref.linear_scan_reference(a, x, h0)
+        torch.cuda.synchronize()
+        name = f"K5 linear_scan ({b}, {t}, {d}) {str(dtype)[6:]} h0={with_h0}"
+        if not (torch.equal(out, p_out) and torch.equal(h_t, p_h)):
+            err = float((out.float() - p_out.float()).abs().max().item())
+            raise AssertionError(f"{name}: not bit-equal (max abs {err})")
+        if not (torch.isfinite(out).all() and torch.isfinite(h_t).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        h0f = None if h0 is None else h0.float().contiguous()
+        o_raw, h_raw = torch.empty_like(out), torch.empty_like(h_t)
+        code = k5._DTYPES[dtype]
+
+        def raw():  # the kernel alone: no validation or allocation per call
+            lib.linear_scan_launch(a.data_ptr(), x.data_ptr(),
+                                   None if h0f is None else h0f.data_ptr(),
+                                   b, t, d, code, o_raw.data_ptr(),
+                                   h_raw.data_ptr(), stream)
+
+        ms = time_ms(torch, raw, reps=11, inner=10)
+        plain_ms = time_ms(torch, lambda: ref.linear_scan_reference(a, x, h0),
+                           reps=3, inner=1)
+        size = a.element_size()
+        # a and b read once, h written once, h_T written once, h0 (f32) read
+        n_bytes = 3 * b * t * d * size + b * d * size + (b * d * 4 if with_h0 else 0)
+        n_ops = 2 * b * t * d  # one multiply and one add an element
+        bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
+        log(f"{name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_s * 1e3:.5f} ms ({n_bytes} bytes)")
+        rows.append({
+            "shape": [b, t, d], "dtype": str(dtype)[6:], "h0": with_h0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
+            else "operations",
+        })
+        del a, x, h0, out, h_t, p_out, p_h, o_raw, h_raw
+    torch.cuda.empty_cache()
+    main = next(r for r in rows if r["shape"] == [1, 1024, d_full] and not r["h0"])
+    return {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "shape": {"B": 1, "T": 1024, "D": d_full, "dtype": "float32"},
+            "cases": rows}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path
+# Phase 3: the auction path
 # ---------------------------------------------------------------------------
 
 
@@ -388,6 +471,301 @@ def main_path(torch, dev, k1, k2):
     return launches, cuda_pipe
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the serving path
+# ---------------------------------------------------------------------------
+
+
+PHASES = ("prefill", "decode")
+
+
+def serve_requests(torch, dev, model, params, prompts, *, max_new: int):
+    """Serve ``prompts`` through ``ServingEngine``; returns the requests,
+    host-clock timings of each prefill and each decode step, and what each
+    prefill returned (its last logits and its cache leaves).  Each model
+    call runs inside a profiler range named after its phase that starts
+    and ends with a device synchronise, so every kernel it launched also
+    ran inside the range."""
+    from torch.profiler import record_function
+
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    eng = ServingEngine(model, params, ServeConfig(batch_slots=4, max_seq=2048),
+                        device=dev)
+    times = {"prefill": [], "decode": []}
+    prefills = []
+
+    def timed(kind, fn):
+        def call(*args):
+            with record_function(kind):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - t0)
+            if not torch.isfinite(out[0]).all():
+                raise AssertionError(f"{kind} produced non-finite logits")
+            if kind == "prefill":
+                prefills.append([out[0], *_leaves(out[1])])
+            return out
+        return call
+
+    eng._prefill = timed("prefill", eng._prefill)
+    eng._decode = timed("decode", eng._decode)
+    reqs = [Request(f"r{i}", p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    times["wall_s"] = time.perf_counter() - t0
+    return reqs, times, prefills
+
+
+def serving_path(np, torch, dev, k5, card: str):
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import Model
+
+    cfg = get("falcon_mamba_7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"falcon-mamba-7b full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {str(cfg.dtype)[6:]}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {n_params} params initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED)
+    lens = [1024] + [int(n) for n in rng.integers(128, 1025, 7)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    max_new = 32
+
+    # one short prefill first, so cuBLAS and the kernels are loaded before
+    # anything is timed (not counted: the counters are reset just below)
+    Model(cfg).prefill(params, torch.from_numpy(prompts[0][:16]).to(dev)[None])
+    torch.cuda.synchronize()
+
+    k5.LAUNCHES["linear_scan"] = 0
+    k5.SHAPES.clear()
+    kern_reqs, kern_t, kern_pre = serve_requests(
+        torch, dev, Model(cfg), params, prompts, max_new=max_new)
+    launches = k5.LAUNCHES["linear_scan"]
+    shapes = dict(k5.SHAPES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    k5.LAUNCHES["linear_scan"] = 0
+    plain_reqs, plain_t, plain_pre = serve_requests(
+        torch, dev, Model(cfg, scan_impl="torch"), params, prompts,
+        max_new=max_new)
+    if k5.LAUNCHES["linear_scan"]:
+        raise AssertionError("the plain-scan run launched K5")
+
+    for name, reqs in (("K5", kern_reqs), ("plain", plain_reqs)):
+        bad = [r.request_id for r in reqs
+               if not r.done or len(r.output) != max_new]
+        if bad:
+            raise AssertionError(f"{name} run left requests unfinished: {bad}")
+        if any(not 0 <= t < cfg.padded_vocab for r in reqs for t in r.output):
+            raise AssertionError(f"{name} run emitted a token outside the vocab")
+    for a, b in zip(kern_reqs, plain_reqs):
+        if a.output != b.output:
+            raise AssertionError(f"{a.request_id}: tokens differ between K5 "
+                                 f"and the plain scan: {a.output} vs {b.output}")
+    # K5 is bit-equal to the plain loop, so each prefill's logits and the
+    # ssm/conv states it hands to its slot must be too
+    if len(kern_pre) != len(prompts) or len(plain_pre) != len(prompts):
+        raise AssertionError(f"expected {len(prompts)} prefills, got "
+                             f"{len(kern_pre)} and {len(plain_pre)}")
+    for i, (a, b) in enumerate(zip(kern_pre, plain_pre)):
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"r{i}: prefill logits or cache states differ "
+                                 f"between K5 and the plain scan")
+    n_pre_leaves = len(kern_pre[0])
+    del kern_pre, plain_pre
+    want = cfg.n_layers * len(prompts)
+    if launches != want:
+        raise AssertionError(f"K5 launched {launches} times, expected {want}")
+    n_tok = sum(len(r.output) for r in kern_reqs)
+    for name, t in (("K5", kern_t), ("plain scan", plain_t)):
+        pre = [x * 1e3 for x in t["prefill"]]
+        dec = [x * 1e3 for x in t["decode"]]
+        log(f"serving through {name} [{card}]: {len(prompts)} requests, "
+            f"{n_tok} tokens in {t['wall_s']:.3f} s = {n_tok / t['wall_s']:.2f} "
+            f"tokens/s; prefill ms per request {[round(x, 2) for x in pre]} "
+            f"(prompt lengths {lens}); decode {len(dec)} steps, median "
+            f"{statistics.median(dec):.3f} ms, mean {statistics.mean(dec):.3f} ms")
+    log(f"serving: all {len(prompts)} requests finished, tokens identical through "
+        f"K5 and the plain scan, each prefill's last logits and {n_pre_leaves - 1} "
+        f"cache leaves bit-equal, K5 launches {launches} = {cfg.n_layers} layers x "
+        f"{len(prompts)} prefills, shapes {shapes}; peak memory "
+        f"{peak_gb:.3f} GB [{card}]")
+    busy = serving_profile(torch, dev, Model(cfg), params, prompts, max_new,
+                           kern_t, card)
+    del params
+    torch.cuda.empty_cache()
+
+    # a small input held against the host: the reduced config on the card
+    # (through K5) and on the CPU (plain versions), same params
+    small = reduced("falcon_mamba_7b")
+    host_params = Model(small).init(SEED, device="cpu")
+    toks = np.random.default_rng(SEED + 1).integers(
+        0, small.vocab_size, (2, 40)).astype(np.int32)
+    outs = {}
+    for where, p in (("card", _to(host_params, dev)), ("host", host_params)):
+        d = dev if where == "card" else torch.device("cpu")
+        m = Model(small)
+        tk = torch.from_numpy(toks).to(d)
+        logits, cache, _ = m.prefill(p, tk[:, :32], max_seq=64)
+        seq = [logits.float().cpu()]
+        for t in range(32, 40):
+            logits, cache = m.decode_step(p, tk[:, t], t, cache)
+            seq.append(logits.float().cpu())
+        outs[where] = torch.stack(seq)
+    worst = float((outs["card"] - outs["host"]).abs().max().item())
+    if not worst <= 1e-4:
+        raise AssertionError(f"reduced falcon-mamba: card and host logits differ "
+                             f"by {worst}")
+    log(f"reduced falcon-mamba: card (K5) and host logits agree, prefill + 8 "
+        f"decode steps, max abs gap {worst:.3g} (tolerance 1e-4)")
+    return {"launches": launches, "peak_gb": peak_gb, "kernel": kern_t,
+            "plain": plain_t, "prompt_lengths": lens, "tokens": n_tok,
+            "device_busy": busy}
+
+
+def kernel_group(name: str) -> str:
+    """The kind of work a device activity does, read from its name."""
+    n = name.lower()
+    if "linear_scan_kernel" in n:
+        return "K5"
+    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "gemm"
+    for group, words in (("exp", ("exp_kernel",)),
+                         ("mul", ("mulfunctor",)),
+                         ("add", ("addfunctor", "functor_add",
+                                  "functoronself_add", "functoronother_add")),
+                         ("copy", ("copy", "memcpy", "memset"))):
+        if any(w in n for w in words):
+            return group
+    return "other"
+
+
+def kernel_label(name: str) -> str:
+    """A short name for a device kernel: its functor or kernel function."""
+    import re
+
+    generic = {"vectorized_elementwise_kernel", "unrolled_elementwise_kernel",
+               "elementwise_kernel", "BinaryFunctor", "AUnaryFunctor",
+               "BUnaryFunctor"}
+    for word in re.findall(r"[A-Za-z_]\w*", name):
+        if word not in generic and (word.endswith(("Functor", "_kernel_cuda",
+                                                   "_kernel", "Kernel",
+                                                   "Copy"))
+                                    or word.startswith(("nvjet", "sm90",
+                                                        "CUDAFunctor"))):
+            return word
+    return name[:60]
+
+
+def serving_profile(torch, dev, model, params, prompts, max_new: int,
+                    timed: dict, card: str):
+    """Where serving's time goes: the same requests once more through K5
+    under torch.profiler.  Each device activity is put in the ``prefill``
+    or ``decode`` range it ran in (the ranges start and end with a
+    synchronise), or between them (the engine's cache placement and
+    host copies), and grouped by kernel name.  A phase's device seconds
+    are set against the same phase's host-clock seconds in the unprofiled
+    run ``timed`` and in this profiled one."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reqs, t, _ = serve_requests(torch, dev, model, params, prompts,
+                                    max_new=max_new)
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.device_type == cpu and e.name in PHASES)
+    want = len(t["prefill"]) + len(t["decode"])
+    if len(ranges) != want:
+        log(f"serving device share: not measured (the profiler kept "
+            f"{len(ranges)} of {want} phase ranges)")
+        return None
+    starts = [r[0] for r in ranges]
+    seconds = {ph: {} for ph in PHASES + ("between",)}
+    names = {ph: {} for ph in PHASES + ("between",)}
+    for e in events:
+        if (e.device_type != cuda or e.name in PHASES
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        i = bisect.bisect_right(starts, (t0 + t1) / 2) - 1
+        ph = ranges[i][2] if i >= 0 and (t0 + t1) / 2 <= ranges[i][1] else "between"
+        s = (t1 - t0) / 1e6
+        g = kernel_group(e.name)
+        seconds[ph][g] = seconds[ph].get(g, 0.0) + s
+        label = kernel_label(e.name)
+        names[ph][label] = names[ph].get(label, 0.0) + s
+    busy = {ph: sum(v.values()) for ph, v in seconds.items()}
+    if sum(busy.values()) == 0.0:
+        log("serving device share: not measured (the profiler saw no device time)")
+        return None
+    out = {"profiled_wall_s": t["wall_s"], "busy_s": busy, "groups": seconds}
+    log(f"serving under torch.profiler [{card}]: {len(reqs)} requests x "
+        f"{max_new} new tokens, {t['wall_s']:.3f} s wall (unprofiled "
+        f"{timed['wall_s']:.3f} s); device busy {sum(busy.values()):.4f} s, "
+        f"{busy['between']:.4f} s of it between the model calls")
+    for ph in PHASES:
+        host, prof_host = sum(timed[ph]), sum(t[ph])
+        n = len(t[ph])
+        top = sorted(names[ph].items(), key=lambda kv: -kv[1])[:8]
+        log(f"  {ph}: {n} calls, host clock {host:.4f} s unprofiled "
+            f"({1e3 * host / n:.3f} ms a call), {prof_host:.4f} s profiled; "
+            f"device busy {busy[ph]:.4f} s ({1e3 * busy[ph] / n:.3f} ms a call, "
+            f"{100 * busy[ph] / host:.2f}% of the unprofiled host time, "
+            f"{100 * busy[ph] / prof_host:.2f}% of the profiled); by group: "
+            + ", ".join(f"{g} {v:.4f} s" for g, v in sorted(
+                seconds[ph].items(), key=lambda kv: -kv[1]))
+            + "; top kernels: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in top))
+        out[ph] = {"host_s": host, "profiled_host_s": prof_host, "calls": n}
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def device_seconds(torch, prof, names, group_of) -> dict:
+    """Device seconds by group (``group_of(kernel name)`` picks one of
+    ``names``) from device activities only: a CPU op's self device time
+    repeats the time of the kernels and copies it launched."""
+    groups = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        groups[group_of(e.key)] += us / 1e6
+    return groups
+
+
 def device_share(torch, core, dev, workload, sim) -> None:
     """Where the main path's time goes: the cuda serial run once more under
     torch.profiler, its device time by kind over its (profiled) wall."""
@@ -397,19 +775,10 @@ def device_share(torch, core, dev, workload, sim) -> None:
         run = run_sim(core, "cuda", pipeline=False, device=dev,
                       workload=workload, sim=sim)
         torch.cuda.synchronize()
-    groups = {"score_kernel": 0.0, "wis_batch_kernel": 0.0, "memcpy": 0.0,
-              "other": 0.0}
-    for e in prof.key_averages():
-        # device activities only: a CPU op's self device time repeats the
-        # time of the kernels and copies it launched
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        key = next((g for g in groups if g in e.key or
-                    (g == "memcpy" and "Memcpy" in e.key)), "other")
-        groups[key] += us / 1e6
+    names = ("score_kernel", "wis_batch_kernel", "memcpy", "other")
+    groups = device_seconds(torch, prof, names, lambda key: next(
+        (g for g in names if g in key or (g == "memcpy" and "Memcpy" in key)),
+        "other"))
     busy = sum(groups.values())
     if busy == 0.0:
         log("device share: not measured (the profiler saw no device time)")
@@ -439,8 +808,14 @@ def main() -> int:
     from repro_torch.kernels import common
     from repro_torch.kernels.jasda_score import kernel as k1
     from repro_torch.kernels.jasda_score import ref as k1_ref
+    from repro_torch.kernels.linear_scan import kernel as k5
+    from repro_torch.kernels.linear_scan import ref as k5_ref
     from repro_torch.kernels.wis_dp import kernel as k2
     from repro_torch.kernels.wis_dp import ref as k2_ref
+
+    # float32 matmuls in full float32 on the card, as on the host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     reports = common.build_all()
@@ -452,7 +827,10 @@ def main() -> int:
 
     scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
     k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)
+    k5_row = check_scan_kernel(torch, dev, k5, k5_ref)
+    del scores
     launches, run = main_path(torch, dev, k1, k2)
+    served = serving_path(np, torch, dev, k5, card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -466,6 +844,11 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches_per_round"] = k["launches"] / max(run["rounds"], 1)
+    kernels.append(dict(
+        name="linear_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/linear_scan.cu",
+        replaces="src/repro/kernels/linear_scan/kernel.py:51",
+        launches=served["launches"], library_ms=None, **k5_row))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ the ``repro`` package -- and rebuild the port's objects from them:
 * :func:`calibrator` — a reference ``Calibrator`` (or its ``snapshot()``)
   → the port's ``Calibrator``;
 * :func:`to_port` — any reference dataclass value (``Policy``,
-  ``ScoringPolicy``, clearing backends, ...) → the port's twin.
+  ``ScoringPolicy``, clearing backends, ...) → the port's twin;
+* :func:`model_params` — a reference model's param tree (numpy leaves, or
+  anything ``np.asarray`` reads) → the port's tree of torch tensors.
 
 The tests use them to feed both packages the same inputs.
 """
@@ -28,7 +30,8 @@ import torch
 
 from .kernels.common import resolve_device
 
-__all__ = ["to_port", "policy", "calibrator", "packed_round", "settle_arrays"]
+__all__ = ["to_port", "policy", "calibrator", "packed_round", "settle_arrays",
+           "model_params"]
 
 _REF = "repro"
 _PORT = "repro_torch"
@@ -111,3 +114,23 @@ def settle_arrays(idx_sorted, pred, weights: Optional[np.ndarray] = None,
         out["weights"] = torch.from_numpy(
             np.ascontiguousarray(weights, np.float32)).to(dev)
     return out
+
+
+def _tensor(leaf) -> torch.Tensor:
+    arr = np.array(leaf)  # a writable host copy
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch twin in numpy: carry the bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def model_params(ref_params, device=None):
+    """A reference param tree → the port's, leaf for leaf, bits kept.
+
+    The trees share their nested-dict layout (stacked superblocks keep the
+    leading layer axis), so each leaf maps to the same path.
+    """
+    dev = resolve_device(device)
+    if isinstance(ref_params, Mapping):
+        return {k: model_params(v, dev) for k, v in ref_params.items()}
+    return _tensor(ref_params).to(dev)

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the auction round's hot spots (H100).
+"""Hand-written CUDA kernels for the port's hot spots (H100).
 
 Each kernel subpackage mirrors its TPU counterpart in ``repro.kernels``:
   kernel.py — the ctypes wrapper of a CUDA C++ kernel in ``csrc/`` (built
@@ -9,4 +9,5 @@ Each kernel subpackage mirrors its TPU counterpart in ``repro.kernels``:
 Kernels:
   jasda_score — paper §4.2: batched variant scoring + FMP safety
   wis_dp      — paper §4.4: batched weighted-interval-scheduling settle
+  linear_scan — the diagonal recurrence of the mamba / RG-LRU prefill
 """

@@ -1,0 +1,164 @@
+"""Core layer primitives (plain functions over param dicts).
+
+The port's counterpart of ``repro/models/layers.py``.  The reference
+computes these outside any Pallas kernel, so they are plain torch here.
+Layouts are the reference's: activations (B, S, D), heads (B, S, H, hd).
+
+Attention implementations:
+  * ``full``     — materialized logits; fine for short seq / decode.
+  * ``chunked``  — a loop over q chunks, full-T softmax per chunk; bounds
+                   transient memory to O(cq·T).
+  * ``pallas``   — the flash-attention TPU kernel (K4), not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rms_norm", "layer_norm", "rope", "attention", "mlp", "gelu"]
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-rotation, llama convention)
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """x: (B, S, H, hd); positions: (B, S) integers."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions.float()[..., None] * freqs  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _mask(q_pos, k_pos, causal, window):
+    """(B,S),(B,T) → (B,S,T) boolean visibility mask."""
+    b, s = q_pos.shape
+    t = k_pos.shape[1]
+    m = torch.ones((b, s, t), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m = m & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        m = m & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    return m
+
+
+def _sdpa_full(q, k, v, q_pos, k_pos, *, causal, window, scale):
+    """q (B,S,H,hd), k/v (B,T,Hkv,hd) — GQA via head grouping."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, hd)
+    # float32 logits, as the reference's preferred_element_type=float32
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+    mask = _mask(q_pos, k_pos, causal, window)  # (B, S, T)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, hq, hd)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, scale, chunk_q):
+    s = q.shape[1]
+    if s % chunk_q:
+        chunk_q = s
+    outs = [_sdpa_full(q[:, i:i + chunk_q], k, v, q_pos[:, i:i + chunk_q],
+                       k_pos, causal=causal, window=window, scale=scale)
+            for i in range(0, s, chunk_q)]
+    return torch.cat(outs, dim=1)
+
+
+def attention(
+    q, k, v,
+    *,
+    q_positions,  # (B, S)
+    k_positions,  # (B, T)
+    causal: bool = True,
+    window: Optional[int] = None,
+    impl: str = "auto",
+    chunk_q: int = 256,  # bounds the (B,H,cq,T) logits transient
+    scale: Optional[float] = None,
+):
+    """Dispatching scaled-dot-product attention. Layouts: (B, S, H, hd)."""
+    s, hd = q.shape[1], q.shape[3]
+    t = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if impl == "auto":
+        impl = "full" if (s * t <= 4096 * 4096 or s == 1) else "chunked"
+    if impl == "pallas":
+        raise NotImplementedError(
+            "attention impl 'pallas' is the flash-attention TPU kernel "
+            "(K4, repro/kernels/flash_attention/kernel.py::mha_pallas), which "
+            "is not ported yet (ROADMAP.md §2); use 'full' or 'chunked'")
+    if impl == "full":
+        return _sdpa_full(q, k, v, q_positions, k_positions, causal=causal,
+                          window=window, scale=scale)
+    if impl == "chunked":
+        return _sdpa_chunked(q, k, v, q_positions, k_positions, causal=causal,
+                             window=window, scale=scale, chunk_q=chunk_q)
+    raise ValueError(f"unknown attention impl {impl}")
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def gelu(x):
+    """gelu with the tanh approximation, ``jax.nn.gelu``'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _act(x, kind: str):
+    return F.silu(x) if kind == "silu" else gelu(x)
+
+
+def mlp(x, p, *, gated: bool, act: str):
+    """Gated (SwiGLU) or plain two-matrix FFN. x: (B, S, D)."""
+    if gated:
+        g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+        u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+        h = _act(g, act) * u
+    else:
+        h = _act(torch.einsum("bsd,df->bsf", x, p["w_up"]), act)
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])

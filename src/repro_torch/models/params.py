@@ -1,0 +1,206 @@
+"""Parameter templates: one source of truth for shapes, dtypes and inits.
+
+The port's counterpart of ``repro/models/params.py`` for the families the
+port runs (``dense``, ``ssm``, ``hybrid``).  A template is a nested dict of
+``P`` leaves with the reference's shapes -- stacked superblocks carry a
+leading layer axis -- and its init recipes (fan-in normal, ``alog``,
+``dtbias``, ``lam``).  The logical sharding specs are left out until the
+port shards (``ROADMAP.md`` §1).
+
+``init_params`` builds every leaf on the device from one seeded
+``torch.Generator``: the full width is never built on the host.  Its
+numbers differ from ``jax.random``'s for the same seed; the tests carry
+the reference's params over with ``repro_torch.convert.model_params``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..kernels.common import resolve_device
+from .config import ModelConfig
+
+__all__ = ["P", "build_template", "init_params", "PORTED_FAMILIES"]
+
+#: families whose blocks the port builds and runs
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+@dataclass(frozen=True)
+class P:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones | alog | dtbias | lam
+    fan_in: Optional[int] = None  # stddev = 1/sqrt(fan_in); default shape[-2]
+    dtype: Any = None  # None → cfg.dtype; norms/scalars force f32
+
+
+# ---------------------------------------------------------------------------
+# Template builders
+# ---------------------------------------------------------------------------
+
+
+def _attn_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = {
+        "wq": P((L, D, H, hd), fan_in=D),
+        "wk": P((L, D, Hkv, hd), fan_in=D),
+        "wv": P((L, D, Hkv, hd), fan_in=D),
+        "wo": P((L, H, hd, D), fan_in=H * hd),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = P((L, H, hd), init="zeros")
+        t["bk"] = P((L, Hkv, hd), init="zeros")
+        t["bv"] = P((L, Hkv, hd), init="zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
+        t["k_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
+    return t
+
+
+def _mlp_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+    D, F = cfg.d_model, cfg.d_ff
+    t = {
+        "w_up": P((L, D, F), fan_in=D),
+        "w_down": P((L, F, D), fan_in=F),
+    }
+    if cfg.gated_mlp:
+        t["w_gate"] = P((L, D, F), fan_in=D)
+    return t
+
+
+def _norm_tpl(cfg: ModelConfig, L: int, name: str) -> Dict[str, P]:
+    return {f"{name}_scale": P((L, cfg.d_model), init="zeros", dtype=torch.float32)}
+
+
+def _mamba_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+    D, Dm, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
+                      cfg.dt_rank_actual)
+    return {
+        "in_proj": P((L, D, 2, Dm), fan_in=D),
+        "conv_w": P((L, K, Dm), fan_in=K),
+        "conv_b": P((L, Dm), init="zeros"),
+        "x_proj": P((L, Dm, R + 2 * N), fan_in=Dm),
+        "dt_proj": P((L, R, Dm), fan_in=R),
+        "dt_bias": P((L, Dm), init="dtbias", dtype=torch.float32),
+        "a_log": P((L, Dm, N), init="alog", dtype=torch.float32),
+        "d_skip": P((L, Dm), init="ones", dtype=torch.float32),
+        "out_proj": P((L, Dm, D), fan_in=Dm),
+    }
+
+
+def _rglru_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+    D, Dr, K = cfg.d_model, cfg.lru_dim, cfg.ssm_conv
+    nb = max(1, Dr // 256)  # block-diagonal gate projections (Griffin)
+    bs = Dr // nb
+    return {
+        "in_x": P((L, D, Dr), fan_in=D),
+        "in_gate": P((L, D, Dr), fan_in=D),
+        "conv_w": P((L, K, Dr), fan_in=K),
+        "conv_b": P((L, Dr), init="zeros"),
+        "gate_r": P((L, nb, bs, bs), fan_in=bs),
+        "gate_i": P((L, nb, bs, bs), fan_in=bs),
+        "gate_r_b": P((L, Dr), init="zeros"),
+        "gate_i_b": P((L, Dr), init="zeros"),
+        "lam": P((L, Dr), init="lam", dtype=torch.float32),
+        "out_proj": P((L, Dr, D), fan_in=Dr),
+    }
+
+
+def _block_tpl(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
+    if kind == "attn":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "attn": _attn_tpl(cfg, L),
+            **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
+        }
+    if kind == "mamba":
+        return {**_norm_tpl(cfg, L, "ln1"), "mamba": _mamba_tpl(cfg, L)}
+    if kind == "rglru":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "rglru": _rglru_tpl(cfg, L),
+            **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
+        }
+    raise NotImplementedError(
+        f"{kind!r} blocks are not ported yet (see ROADMAP.md §1)")
+
+
+def build_template(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet; the port runs "
+            f"{', '.join(PORTED_FAMILIES)} (see ROADMAP.md §1)")
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    tpl: Dict[str, Any] = {
+        "embed": P((Vp, D), fan_in=1),
+        "final_norm": P((D,), init="zeros", dtype=torch.float32),
+    }
+    if not cfg.tie_embeddings:
+        tpl["unembed"] = P((D, Vp), fan_in=D)
+    sb = cfg.superblock
+    tpl["blocks"] = {f"b{i}_{kind}": _block_tpl(cfg, kind, cfg.n_super)
+                     for i, kind in enumerate(sb)}
+    if cfg.n_tail:
+        tpl["tail"] = {f"t{i}_{kind}": _block_tpl(cfg, kind, 1)
+                       for i, kind in enumerate(sb[: cfg.n_tail])}
+    return tpl
+
+
+# ---------------------------------------------------------------------------
+# Materialization
+# ---------------------------------------------------------------------------
+
+
+def _normal(shape, std, dtype, gen, device) -> torch.Tensor:
+    """N(0, std²) in ``dtype``; a stacked leaf is drawn one layer at a time
+    so that its float32 draw never takes the whole stack's memory."""
+    if len(shape) < 3:
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen, device=device) * std
+    return out
+
+
+def _init_leaf(p: P, cfg: ModelConfig, gen: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    dtype = p.dtype or cfg.dtype
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "normal":
+        fan = p.fan_in if p.fan_in else (p.shape[-2] if len(p.shape) >= 2 else p.shape[-1])
+        return _normal(p.shape, 1.0 / math.sqrt(max(fan, 1)), dtype, gen, device)
+    if p.init == "alog":  # mamba: A = -exp(a_log), a_log = log(1..N)
+        n = p.shape[-1]
+        base = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))
+        return base.expand(p.shape).to(dtype).contiguous()
+    if p.init == "dtbias":  # softplus^-1 of dt ~ LogUniform[1e-3, 1e-1]
+        u = torch.rand(p.shape, generator=gen, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+        return torch.log(torch.expm1(dt)).to(dtype)
+    if p.init == "lam":  # RG-LRU Λ: a^c ∈ [0.9, 0.999], a = sigmoid(Λ), c=8
+        u = torch.rand(p.shape, generator=gen, device=device) * (0.999 - 0.9) + 0.9
+        a = u ** (1.0 / 8.0)
+        return torch.log(a / (1 - a)).to(dtype)
+    raise ValueError(p.init)
+
+
+def _materialize(tpl, cfg, gen, device):
+    if isinstance(tpl, P):
+        return _init_leaf(tpl, cfg, gen, device)
+    return {k: _materialize(v, cfg, gen, device) for k, v in tpl.items()}
+
+
+def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
+                device=None) -> Dict[str, Any]:
+    """Every leaf of ``cfg``'s template, drawn on ``device`` (the card unless
+    ``"cpu"`` is asked for).  ``generator`` is a ``torch.Generator`` on that
+    device, or an int seed for one."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        seed, generator = generator, torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    return _materialize(build_template(cfg), cfg, generator, dev)

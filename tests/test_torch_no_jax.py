@@ -37,7 +37,9 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 30  # every module of the slice imported
+    # every module of the two slices imported: the auction round, and the
+    # linear scan, models, configs, serving engine and launcher
+    assert int(out.stdout.strip()) > 50
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,6 +54,10 @@ def test_cuda_device_without_card_raises(monkeypatch):
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.kernels.common import resolve_device
     from repro_torch.kernels.jasda_score.ops import score_variants
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import ServeConfig, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -61,6 +67,13 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         score_variants([[0.5]], [[0.5]], [1.0], [1.0], [[0.0]], [[0.0]],
                        lam=0.5, capacity=1.0, theta=1.0)
+    model = Model(reduced("falcon_mamba_7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, model.init(0, device="cpu"), ServeConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "falcon_mamba_7b", "--reduced"])
     assert resolve_device("cpu").type == "cpu"
 
 
