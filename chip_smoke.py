@@ -20,6 +20,18 @@ Phases (any failure exits non-zero and prints no result):
    prefill's shapes, (1, T, 131072) float32 for T in {1, 37, 512, 1024},
    with and without h0, the RG-LRU width (1, 512, 4096) and one bfloat16
    case (2, 256, 8192).  Outputs and final states must be bit-equal;
+2d. the flash-attention kernel (K4) against its plain version within
+   2e-5 (float32) / 2e-2 (bfloat16), atol and rtol: recurrentgemma's local
+   attention (1, 16, S, 256) on one kv head, window 2048, bfloat16, at
+   S = 1024, 2500 and 4096; qwen3-14b's GQA widths (1, 40, 4096, 128) on 8
+   kv heads; Sq = 128 against Sk = 384 (q_offset 256) in float32; and one
+   non-causal float32 case.  Each is timed beside its plain version, one
+   ``scaled_dot_product_attention`` call (a yardstick the port never calls)
+   and its bound;
+2e. the single-window WIS kernel (K3) against its plain version at M =
+   2048, 16384 (shared memory past 48 KB) and 65536 (global scratch): dp
+   bit-equal, take equal.  Then ``wis_clear`` on the card (its K3 launches
+   counted) must return ``core.wis.wis_select``'s selection and total;
 3. the auction path: ``simulate`` of a 16-GPU H100 cluster cut into 64 MIG
    slices (3g.40gb + 2g.20gb + 1g.10gb + 1g.10gb per GPU) against a
    backlog of 500 jobs, through the CUDA kernels pipelined and serial and
@@ -39,7 +51,20 @@ Phases (any failure exits non-zero and prints no result):
    64 layers x 8 prefills.  The same traffic is then served once more
    under torch.profiler, its device time split into prefill and decode
    and grouped by kernel name.  The reduced config's logits on the card
-   must match the host's.
+   must match the host's;
+5. recurrentgemma-9b at full width (38 layers: 12 local attention, 26
+   RG-LRU; bfloat16), initialised on the card from a seed, serves 8 greedy
+   requests (prompts of 4096, 3072, 2500 and 2048 tokens and 4 seeded in
+   128-2047; 16 new tokens; 4 slots, max_seq 4224) once with its prefill
+   attention through K4 (``attn_impl="pallas"``) and once through
+   ``"auto"``.  K4 must launch 12 x 8 times on 8 shapes and K5 26 x 8 times
+   in each run; where the auto run's top-1 margin exceeds twice the largest
+   gap between the two runs' prefill logits, the first token must agree.
+   The K4 traffic is served once more under torch.profiler, as in phase 4,
+   and ``python -m repro_torch.launch.serve --arch recurrentgemma_9b
+   --attn-impl pallas`` serves its 8 default requests on the card.
+   The reduced config (float32) on the card through K4 and K5 must match
+   the host within 1e-4 over a prefill and 8 decode steps.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; runs
@@ -57,10 +82,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
-# float32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
+# float32 outside the tensor cores, bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 GB = 1 << 30
 MIG_PROFILES = (("3g.40gb", 40, 3), ("2g.20gb", 20, 2),
@@ -353,6 +379,220 @@ def check_scan_kernel(torch, dev, k5, ref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: flash attention (K4); phase 2e: single-window WIS (K3)
+# ---------------------------------------------------------------------------
+
+#: (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): recurrentgemma's
+#: local attention at three prompt lengths (2500 does not tile), qwen3-14b's
+#: GQA widths, a cache longer than the queries, and a non-causal case
+ATTN_CASES = (
+    (1, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0),
+    (1, 16, 1, 2500, 2500, 256, "bfloat16", True, 2048, 0),
+    (1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048, 0),
+    (1, 40, 8, 4096, 4096, 128, "bfloat16", True, None, 0),
+    (2, 4, 2, 128, 384, 64, "float32", True, None, 256),
+    (1, 8, 2, 1000, 1000, 128, "float32", False, None, 0),
+)
+ATTN_MAIN = ATTN_CASES[2]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+
+
+def keys_seen(np, sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """Sum over query rows of the keys each row sees (the unmasked pairs)."""
+    qp = np.arange(sq, dtype=np.int64) + q_offset
+    lo = np.maximum(0, qp - window + 1) if window is not None else np.zeros_like(qp)
+    hi = np.minimum(sk, qp + 1) if causal else np.full_like(qp, sk)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def sdpa_ms(torch, q, k, v, *, causal, window, q_offset, scale):
+    """One PyTorch call computing the same attention, timed as a yardstick
+    (never called by the port); None where PyTorch refuses the shape."""
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[2], k.shape[2]
+    kw = dict(scale=scale, enable_gqa=True)
+    if causal and window is None and q_offset == 0 and sq == sk:
+        kw["is_causal"] = True
+    elif causal or window is not None:
+        qp = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kp = torch.arange(sk, device=q.device)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kp <= qp
+        if window is not None:
+            mask &= kp > qp - window
+        kw["attn_mask"] = mask
+    try:
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, **kw),
+                       reps=5, inner=3)
+    except RuntimeError as exc:
+        log(f"  SDPA refused this shape: {exc}")
+        return None
+
+
+def check_attention_kernel(np, torch, dev, k4, ref):
+    """K4 against its plain version within the kernel tests' tolerances;
+    times beside the plain version, SDPA and the bound."""
+    lib = k4._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for n, case in enumerate(ATTN_CASES):
+        b, hq, hkv, sq, sk, d, dt, causal, window, off = case
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 30 + n)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        scale = 1.0 / d ** 0.5
+        out = k4.mha_cuda(q, k, v, causal=causal, window=window, q_offset=off)
+        want = ref.mha_reference(q, k, v, causal=causal, window=window,
+                                 q_offset=off)
+        torch.cuda.synchronize()
+        name = (f"K4 flash_attention ({b}, {hq}, {sq}, {d}) kv {hkv} Sk {sk} "
+                f"{dt} causal={causal} window={window} q_offset={off}")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite output")
+        err = (out.float() - want.float()).abs()
+        tol = ATTN_TOL[dt]
+        n_bad = int((err > tol + tol * want.float().abs()).sum().item())
+        max_err = float(err.max().item())
+        if n_bad:
+            raise AssertionError(f"{name}: {n_bad} entries outside atol = rtol "
+                                 f"= {tol} (max abs {max_err})")
+        o_raw = torch.empty_like(q)
+
+        def raw():  # the kernel alone: no validation or allocation per call
+            lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o_raw.data_ptr(), b,
+                hq, hkv, sq, sk, d, k4._DTYPES[dtype], int(causal),
+                0 if window is None else window, off, scale, stream)
+
+        ms = time_ms(torch, raw, reps=5, inner=3)
+        plain_ms = time_ms(torch, lambda: ref.mha_reference(
+            q, k, v, causal=causal, window=window, q_offset=off), reps=3, inner=1)
+        lib_ms = sdpa_ms(torch, q, k, v, causal=causal, window=window,
+                         q_offset=off, scale=scale)
+        seen = keys_seen(np, sq, sk, causal, window, off)
+        n_ops = 4 * b * hq * d * seen
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
+        bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak)
+        lib_txt = "refused" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"{name}: within {tol} (max abs {max_err:.3g}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound {bound_s * 1e3:.5f} "
+            f"ms ({n_ops} flops over {seen} (row, key) pairs per head, "
+            f"{n_bytes} bytes)")
+        rows.append({
+            "shape": [b, hq, hkv, sq, sk, d], "dtype": dt, "causal": causal,
+            "window": window, "q_offset": off, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak
+            else "operations",
+        })
+        del q, k, v, out, want, err, o_raw
+        torch.cuda.empty_cache()
+    main = rows[ATTN_CASES.index(ATTN_MAIN)]
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by")} | {
+        "shape": {"B": 1, "Hq": 16, "Hkv": 1, "S": 4096, "D": 256,
+                  "dtype": "bfloat16", "window": 2048},
+        "cases": rows}
+
+
+def dp_window(np, m: int, seed: int):
+    """One end-sorted window: weights in [0, 1), predecessors from the
+    host's searchsorted over sorted ends."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0, 1, m).astype(np.float32)
+    ends = np.sort(rng.uniform(0, 100, m))
+    starts = ends - rng.uniform(0.5, 20, m)
+    pred = np.searchsorted(ends, starts, side="right").astype(np.int32)
+    return w, pred
+
+
+def check_dp_kernel(np, torch, dev, k3, ref):
+    """K3 bit-equal to its plain version in shared memory above and below
+    48 KB and in global scratch; then the ``wis_clear`` entry point on the
+    card against the host's float64 ``wis_select``, its launches counted."""
+    from repro_torch.core.wis import wis_select
+    from repro_torch.kernels import wis_clear
+
+    branches = set()
+    main = None
+    for n, m in enumerate((2048, 16384, 65536)):
+        w_np, p_np = dp_window(np, m, SEED + 40 + n)
+        w = torch.from_numpy(w_np).to(dev)
+        p = torch.from_numpy(p_np).to(dev)
+        dp, take = k3.wis_dp_cuda(w, p)
+        p_dp, p_take = ref.wis_dp_reference(w, p)
+        torch.cuda.synchronize()
+        if ulp_gap(torch, dp, p_dp) != 0 or not torch.equal(take, p_take):
+            raise AssertionError(f"K3 M={m}: dp not bit-equal or take differs")
+        if not int(take.sum().item()) or not torch.isfinite(dp).all():
+            raise AssertionError(f"K3 M={m}: nothing taken or non-finite dp")
+        staged = int(k3._lib().wis_dp_smem_bytes(m))
+        branch = ("global scratch" if not k3.dp_uses_shared_memory(m, dev)
+                  else "shared > 48 KB" if staged > 48 * 1024 else "shared")
+        branches.add(branch)
+        log(f"K3 wis_dp M={m}: dp bit-equal, take equal ({int(take.sum())} "
+            f"taken), {staged} bytes staged -> {branch}")
+        if m == 2048:
+            main = (w, p, m)
+    if branches != {"shared", "shared > 48 KB", "global scratch"}:
+        raise AssertionError(f"K3 branches exercised: {sorted(branches)}")
+
+    w, p, m = main
+    lib = k3._lib()
+    dp = torch.empty((m,), dtype=torch.float32, device=dev)
+    take = torch.empty((m,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        lib.wis_dp_launch(w.data_ptr(), p.data_ptr(), m, dp.data_ptr(),
+                          take.data_ptr(), None, stream)
+
+    ms = time_ms(torch, raw, reps=11, inner=10)
+    plain_ms = time_ms(torch, lambda: ref.wis_dp_reference(w, p), reps=3, inner=1)
+    n_bytes = 4 * m * 4  # w and pred read, dp and take written
+    n_ops = 2 * m  # one add and one compare a lane
+    bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
+    log(f"K3 wis_dp M={m}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{bound_s * 1e3:.6f} ms ({n_bytes} bytes)")
+
+    # the entry point: one window's clear as a user calls it, DP on the card
+    k3.LAUNCHES["wis_dp"] = 0
+    rng = np.random.default_rng(SEED + 45)
+    sizes = (1, 12, 300, 2048)
+    for m_pool in sizes:
+        starts = rng.uniform(0, 100, m_pool)
+        ends = starts + rng.uniform(0.5, 30, m_pool)
+        weights = rng.uniform(0.0, 1.0, m_pool)
+        sel, total = wis_clear(starts, ends, weights, impl="cuda", device=dev)
+        sel_h, total_h = wis_select(starts, ends, weights)
+        sel_t, total_t = wis_clear(starts, ends, weights, impl="torch",
+                                   device="cpu")
+        if sel.tolist() != sel_t.tolist() or total != total_t:
+            raise AssertionError(f"wis_clear M={m_pool}: card and host float32 "
+                                 "DP disagree")
+        if set(sel.tolist()) != set(sel_h.tolist()) or \
+                abs(total - total_h) > 1e-5 * max(1.0, abs(total_h)):
+            raise AssertionError(f"wis_clear M={m_pool}: selection or total "
+                                 f"differs from wis_select ({total} vs {total_h})")
+        log(f"wis_clear M={m_pool} on the card: {len(sel)} selected, total "
+            f"{total} (host float64 {total_h}), selection equal")
+    launches = k3.LAUNCHES["wis_dp"]
+    if launches != len(sizes):
+        raise AssertionError(f"wis_clear launched K3 {launches} times, "
+                             f"expected {len(sizes)}")
+    return {"launches": launches, "max_abs_err": 0.0, "ulps": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
+            else "operations", "shape": {"M": m}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the auction path
 # ---------------------------------------------------------------------------
 
@@ -479,19 +719,19 @@ def main_path(torch, dev, k1, k2):
 PHASES = ("prefill", "decode")
 
 
-def serve_requests(torch, dev, model, params, prompts, *, max_new: int):
-    """Serve ``prompts`` through ``ServingEngine``; returns the requests,
-    host-clock timings of each prefill and each decode step, and what each
-    prefill returned (its last logits and its cache leaves).  Each model
-    call runs inside a profiler range named after its phase that starts
-    and ends with a device synchronise, so every kernel it launched also
-    ran inside the range."""
+def serve_requests(torch, dev, model, params, prompts, *, max_new: int,
+                   max_seq: int = 2048, attn_impl: str = "auto"):
+    """Serve ``prompts`` through ``ServingEngine`` (4 slots); returns the
+    requests, host-clock timings of each prefill and each decode step, and
+    what each prefill returned (its last logits and its cache leaves).  Each model call runs inside a profiler range named
+    after its phase that starts and ends with a device synchronise, so
+    every kernel it launched also ran inside the range."""
     from torch.profiler import record_function
 
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
-    eng = ServingEngine(model, params, ServeConfig(batch_slots=4, max_seq=2048),
-                        device=dev)
+    eng = ServingEngine(model, params, ServeConfig(batch_slots=4, max_seq=max_seq),
+                        device=dev, attn_impl=attn_impl)
     times = {"prefill": [], "decode": []}
     prefills = []
 
@@ -637,11 +877,192 @@ def serving_path(np, torch, dev, k5, card: str):
             "device_busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: recurrentgemma-9b serving through K4 and K5
+# ---------------------------------------------------------------------------
+
+
+def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
+    """recurrentgemma-9b at full width, bf16, random from SEED: 8 greedy
+    requests (prompts on both sides of the 2048 window) through K4 and
+    through the "auto" attention; then the reduced config on the card
+    against the host."""
+    from repro_torch.configs import get, reduced
+    from repro_torch.models import Model
+
+    cfg = get("recurrentgemma_9b")
+    n_attn = cfg.n_super * cfg.superblock.count("attn")
+    n_rglru = cfg.n_layers - n_attn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"recurrentgemma-9b full width: {cfg.n_layers} layers ({n_attn} local "
+        f"attention, window {cfg.window}, {cfg.n_heads} q heads on "
+        f"{cfg.n_kv_heads} kv head, head dim {cfg.hd}; {n_rglru} RG-LRU), "
+        f"d_model {cfg.d_model}, {str(cfg.dtype)[6:]}, vocab {cfg.vocab_size}, "
+        f"{n_params} params initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED + 50)
+    lens = [4096, 3072, 2500, 2048] + sorted(
+        (int(n) for n in rng.choice(np.arange(128, 2048), 4, replace=False)),
+        reverse=True)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    max_new, max_seq = 16, 4224
+
+    warm = torch.from_numpy(prompts[0][:64]).to(dev)[None]
+    for impl in ("pallas", "auto"):  # load cuBLAS and the kernels, untimed
+        Model(cfg).prefill(params, warm, impl=impl)
+    torch.cuda.synchronize()
+
+    runs = {}
+    for impl in ("pallas", "auto"):
+        k4.LAUNCHES["flash_attention"] = 0
+        k4.SHAPES.clear()
+        k5.LAUNCHES["linear_scan"] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reqs, t, pre = serve_requests(torch, dev, Model(cfg), params, prompts,
+                                      max_new=max_new, max_seq=max_seq,
+                                      attn_impl=impl)
+        runs[impl] = {"reqs": reqs, "t": t,
+                      "logits": [x[0][0].float() for x in pre],
+                      "k4": k4.LAUNCHES["flash_attention"],
+                      "k4_shapes": dict(k4.SHAPES),
+                      "k5": k5.LAUNCHES["linear_scan"],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    pal, auto = runs["pallas"], runs["auto"]
+
+    for impl, run in runs.items():
+        bad = [r.request_id for r in run["reqs"]
+               if not r.done or len(r.output) != max_new]
+        if bad:
+            raise AssertionError(f"{impl} run left requests unfinished: {bad}")
+        if any(not 0 <= tok < cfg.padded_vocab for r in run["reqs"] for tok in r.output):
+            raise AssertionError(f"{impl} run emitted a token outside the vocab")
+        if len(run["logits"]) != len(prompts):
+            raise AssertionError(f"{impl} run made {len(run['logits'])} prefills")
+        if run["k5"] != n_rglru * len(prompts):
+            raise AssertionError(f"{impl} run launched K5 {run['k5']} times, "
+                                 f"expected {n_rglru} x {len(prompts)}")
+    if auto["k4"]:
+        raise AssertionError("the auto-attention run launched K4")
+    if pal["k4"] != n_attn * len(prompts) or len(pal["k4_shapes"]) != len(prompts):
+        raise AssertionError(f"K4 launched {pal['k4']} times on "
+                             f"{len(pal['k4_shapes'])} shapes, expected "
+                             f"{n_attn} x {len(prompts)} on {len(prompts)}")
+
+    gated = later = later_same = 0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(pal["logits"], auto["logits"])):
+        gap = float((a - b).abs().max().item())
+        worst = max(worst, gap)
+        top2 = torch.topk(b, 2).values
+        margin = float((top2[0] - top2[1]).item())
+        ra, rb = pal["reqs"][i], auto["reqs"][i]
+        if margin > 2 * gap:
+            gated += 1
+            if ra.output[0] != rb.output[0]:
+                raise AssertionError(
+                    f"r{i}: first token {ra.output[0]} through K4, {rb.output[0]} "
+                    f"through auto, though the auto margin {margin} exceeds "
+                    f"twice the logit gap {gap}")
+        same = sum(x == y for x, y in zip(ra.output[1:], rb.output[1:]))
+        later += len(ra.output) - 1
+        later_same += same
+        log(f"  r{i} prompt {lens[i]}: prefill logit gap {gap:.4g}, auto "
+            f"top-1 margin {margin:.4g}, first token {ra.output[0]} / "
+            f"{rb.output[0]}, later tokens equal {same}/{len(ra.output) - 1}")
+    log(f"K4 vs auto: largest prefill logit gap {worst:.4g}; first token "
+        f"gated on {gated}/{len(prompts)} requests (margin > 2 x gap), all "
+        f"equal; later tokens equal {later_same}/{later} (not gated)")
+
+    n_tok = sum(len(r.output) for r in pal["reqs"])
+    out = {"prompt_lengths": lens, "tokens": n_tok, "k4_launches": pal["k4"],
+           "k5_launches": pal["k5"], "max_logit_gap": worst,
+           "first_token_gated": gated, "later_tokens_equal": [later_same, later]}
+    for impl, run in runs.items():
+        t = run["t"]
+        pre = [x * 1e3 for x in t["prefill"]]
+        dec = [x * 1e3 for x in t["decode"]]
+        log(f"recurrentgemma-9b serving, attention {impl} [{card}]: "
+            f"{len(prompts)} requests, {n_tok} tokens in {t['wall_s']:.3f} s = "
+            f"{n_tok / t['wall_s']:.2f} tokens/s; prefill ms per request "
+            f"{[round(x, 2) for x in pre]} (prompt lengths {lens}); decode "
+            f"{len(dec)} steps, median {statistics.median(dec):.3f} ms, mean "
+            f"{statistics.mean(dec):.3f} ms; peak memory {run['peak_gb']:.3f} GB; "
+            f"K4 launches {run['k4']}, K5 launches {run['k5']}")
+        out[impl] = {"wall_s": t["wall_s"], "prefill_ms": pre,
+                     "decode_ms_median": statistics.median(dec),
+                     "decode_ms_mean": statistics.mean(dec),
+                     "peak_gb": run["peak_gb"]}
+    log(f"  K4 shapes (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): "
+        f"{pal['k4_shapes']}")
+    out["device_busy"] = serving_profile(
+        torch, dev, Model(cfg), params, prompts, max_new, pal["t"], card,
+        max_seq=max_seq, attn_impl="pallas")
+    del params, runs, pal, auto
+    torch.cuda.empty_cache()
+
+    # the launcher a user runs, on the card at full width (its own params
+    # and short synthetic prompts): every request must finish
+    from repro_torch.launch import serve
+
+    k4.LAUNCHES["flash_attention"] = 0
+    if serve.main(["--arch", "recurrentgemma_9b", "--attn-impl", "pallas",
+                   "--json"]) != 0:
+        raise AssertionError("launch.serve --attn-impl pallas failed on the card")
+    if k4.LAUNCHES["flash_attention"] != n_attn * 8:
+        raise AssertionError(f"launch.serve launched K4 "
+                             f"{k4.LAUNCHES['flash_attention']} times, "
+                             f"expected {n_attn} x 8 requests")
+    log(f"launch.serve --arch recurrentgemma_9b --attn-impl pallas on the card: "
+        f"8 requests finished, K4 launches {k4.LAUNCHES['flash_attention']}")
+    torch.cuda.empty_cache()
+
+    # a small input held against the host: the reduced config (window 16)
+    # on the card through K4 and K5, on the CPU through the plain versions
+    small = reduced("recurrentgemma_9b")
+    host_params = Model(small).init(SEED, device="cpu")
+    toks = np.random.default_rng(SEED + 2).integers(
+        0, small.vocab_size, (2, 40)).astype(np.int32)
+    outs = {}
+    k4.LAUNCHES["flash_attention"] = 0
+    for where, p in (("card", _to(host_params, dev)), ("host", host_params)):
+        d = dev if where == "card" else torch.device("cpu")
+        m = Model(small)
+        tk = torch.from_numpy(toks).to(d)
+        logits, cache, _ = m.prefill(p, tk[:, :32], impl="pallas", max_seq=64)
+        seq = [logits.float().cpu()]
+        for t in range(32, 40):
+            logits, cache = m.decode_step(p, tk[:, t], t, cache)
+            seq.append(logits.float().cpu())
+        outs[where] = torch.stack(seq)
+    small_attn = small.n_super * small.superblock.count("attn")
+    if k4.LAUNCHES["flash_attention"] != small_attn:
+        raise AssertionError(f"reduced prefill on the card launched K4 "
+                             f"{k4.LAUNCHES['flash_attention']} times, expected "
+                             f"{small_attn}")
+    worst = float((outs["card"] - outs["host"]).abs().max().item())
+    if not worst <= 1e-4:
+        raise AssertionError(f"reduced recurrentgemma: card and host logits "
+                             f"differ by {worst}")
+    log(f"reduced recurrentgemma: card (K4, K5) and host (plain versions) "
+        f"logits agree, prompt 32 past window {small.window}, prefill + 8 "
+        f"decode steps, max abs gap {worst:.3g} (tolerance 1e-4)")
+    out["reduced_gap"] = worst
+    return out
+
+
 def kernel_group(name: str) -> str:
     """The kind of work a device activity does, read from its name."""
     n = name.lower()
     if "linear_scan_kernel" in n:
         return "K5"
+    if "flash_attention_kernel" in n:
+        return "K4"
     if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "gemm"
     for group, words in (("exp", ("exp_kernel",)),
@@ -672,21 +1093,22 @@ def kernel_label(name: str) -> str:
 
 
 def serving_profile(torch, dev, model, params, prompts, max_new: int,
-                    timed: dict, card: str):
-    """Where serving's time goes: the same requests once more through K5
-    under torch.profiler.  Each device activity is put in the ``prefill``
-    or ``decode`` range it ran in (the ranges start and end with a
-    synchronise), or between them (the engine's cache placement and
-    host copies), and grouped by kernel name.  A phase's device seconds
-    are set against the same phase's host-clock seconds in the unprofiled
-    run ``timed`` and in this profiled one."""
+                    timed: dict, card: str, **serve_kw):
+    """Where serving's time goes: the same requests once more through the
+    kernels under torch.profiler (``serve_kw`` as ``serve_requests`` takes
+    them).  Each device activity is put in the ``prefill`` or ``decode``
+    range it ran in (the ranges start and end with a synchronise), or
+    between them (the engine's cache placement and host copies), and
+    grouped by kernel name.  A phase's device seconds are set against the
+    same phase's host-clock seconds in the unprofiled run ``timed`` and in
+    this profiled one."""
     import bisect
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reqs, t, _ = serve_requests(torch, dev, model, params, prompts,
-                                    max_new=max_new)
+                                    max_new=max_new, **serve_kw)
     events = prof.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     ranges = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -716,7 +1138,7 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
         log("serving device share: not measured (the profiler saw no device time)")
         return None
     out = {"profiled_wall_s": t["wall_s"], "busy_s": busy, "groups": seconds}
-    log(f"serving under torch.profiler [{card}]: {len(reqs)} requests x "
+    log(f"{model.cfg.name} serving under torch.profiler [{card}]: {len(reqs)} requests x "
         f"{max_new} new tokens, {t['wall_s']:.3f} s wall (unprofiled "
         f"{timed['wall_s']:.3f} s); device busy {sum(busy.values()):.4f} s, "
         f"{busy['between']:.4f} s of it between the model calls")
@@ -806,6 +1228,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.flash_attention import ref as k4_ref
     from repro_torch.kernels.jasda_score import kernel as k1
     from repro_torch.kernels.jasda_score import ref as k1_ref
     from repro_torch.kernels.linear_scan import kernel as k5
@@ -828,9 +1252,12 @@ def main() -> int:
     scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
     k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)
     k5_row = check_scan_kernel(torch, dev, k5, k5_ref)
+    k4_row = check_attention_kernel(np, torch, dev, k4, k4_ref)
+    k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref)
     del scores
     launches, run = main_path(torch, dev, k1, k2)
     served = serving_path(np, torch, dev, k5, card)
+    hybrid = hybrid_serving_path(np, torch, dev, k4, k5, card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -849,6 +1276,16 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/linear_scan.cu",
         replaces="src/repro/kernels/linear_scan/kernel.py:51",
         launches=served["launches"], library_ms=None, **k5_row))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:108",
+        launches=hybrid["k4_launches"], **k4_row))
+    kernels.append(dict(
+        name="wis_dp", route="cuda",
+        source="src/repro_torch/kernels/csrc/wis_batch.cu",
+        replaces="src/repro/kernels/wis_dp/kernel.py:46",
+        library_ms=None, **k3_row))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,13 @@ Each kernel subpackage mirrors its TPU counterpart in ``repro.kernels``:
   ref.py    — the plain torch version, in the kernel's arithmetic order
 
 Kernels:
-  jasda_score — paper §4.2: batched variant scoring + FMP safety
-  wis_dp      — paper §4.4: batched weighted-interval-scheduling settle
-  linear_scan — the diagonal recurrence of the mamba / RG-LRU prefill
+  flash_attention — online-softmax attention (GQA, causal, sliding window)
+  linear_scan     — the diagonal recurrence of the mamba / RG-LRU prefill
+  jasda_score     — paper §4.2: batched variant scoring + FMP safety
+  wis_dp          — paper §4.4: weighted-interval-scheduling DP, batched
+                    settle and single window
 """
+from .flash_attention.ops import flash_attention  # noqa: F401
+from .linear_scan.ops import linear_scan  # noqa: F401
+from .jasda_score.ops import score_variants  # noqa: F401
+from .wis_dp.ops import wis_clear  # noqa: F401

@@ -1,4 +1,5 @@
-// Batched weighted-interval-scheduling DP + backtrack, one block per window.
+// Batched weighted-interval-scheduling DP + backtrack, one block per window;
+// and the single-window forward DP (K3) at the end of this file.
 //
 // Replaces the TPU kernel src/repro/kernels/wis_dp/kernel.py
 // (wis_batch_pallas, body _batch_kernel) together with the score gather
@@ -105,9 +106,97 @@ __global__ void wis_batch_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// Single-window forward DP (K3).
+//
+// Replaces the TPU kernel src/repro/kernels/wis_dp/kernel.py (wis_dp_pallas,
+// body _dp_kernel): for M end-sorted lanes, dp[0] = 0 and
+//   with_j = w[j] + dp[pred[j]];  take[j] = with_j > dp[j];
+//   dp[j+1] = take[j] ? with_j : dp[j]
+// out: dp[1..M] (M,) float32 and take (M,) int32.  The host sorts, computes
+// pred and backtracks (kernels/wis_dp/ops.py::wis_clear).
+//
+// Bound on an H100: latency, like the batched form -- a chain of M dependent
+// steps, each a shared-memory read of dp[pred[j]]; the bytes (~12 M) and the
+// one add a lane are negligible.  Design: one block; its threads stage w,
+// pred and a zeroed dp (12 M + 4 bytes) in shared memory, or, once that
+// passes the block's opt-in limit, dp alone in a global scratch (w and pred
+// are then read where they lie); then one thread runs the DP in the
+// reference's order with rounded adds, so dp is bit-equal to the plain loop.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline size_t dp_bytes(int M) {
+    // w (4M) + pred (4M) + dp (4(M+1)), rounded up to 16 bytes
+    const size_t raw = 12 * static_cast<size_t>(M) + 4;
+    return (raw + 15) & ~static_cast<size_t>(15);
+}
+
+__global__ void wis_dp_kernel(const float* __restrict__ weights,  // (M,)
+                              const int32_t* __restrict__ pred,   // (M,)
+                              int M,
+                              float* __restrict__ dp_out,         // (M,)
+                              int32_t* __restrict__ take_out,     // (M,)
+                              float* __restrict__ scratch) {      // (M+1,) or nullptr
+    extern __shared__ __align__(16) uint8_t smem[];
+    const float* w = weights;
+    const int32_t* pr = pred;
+    float* dp = scratch;
+    if (scratch == nullptr) {
+        float* ws = reinterpret_cast<float*>(smem);
+        int32_t* ps = reinterpret_cast<int32_t*>(smem + 4 * static_cast<size_t>(M));
+        dp = reinterpret_cast<float*>(smem + 8 * static_cast<size_t>(M));
+        for (int j = threadIdx.x; j < M; j += blockDim.x) {
+            ws[j] = weights[j];
+            ps[j] = pred[j];
+        }
+        w = ws;
+        pr = ps;
+    }
+    for (int j = threadIdx.x; j <= M; j += blockDim.x) dp[j] = 0.0f;  // a pred past j reads 0
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+
+    float cur = 0.0f;  // dp[j]
+    for (int j = 0; j < M; ++j) {
+        const int p = min(max(pr[j], 0), M);  // indexes dp[0..M]
+        const float with_j = __fadd_rn(w[j], dp[p]);
+        const bool t = with_j > cur;
+        cur = t ? with_j : cur;
+        dp[j + 1] = cur;
+        dp_out[j] = cur;
+        take_out[j] = t ? 1 : 0;
+    }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Bytes of shared memory the single-window DP stages for M lanes.
+int wis_dp_smem_bytes(int M) { return static_cast<int>(dp_bytes(M)); }
+
+// scratch == nullptr stages w, pred and dp in dynamic shared memory of
+// wis_dp_smem_bytes(M); else scratch holds M + 1 floats for dp.  Launches on
+// the caller's stream without synchronising and returns cudaGetLastError().
+int wis_dp_launch(const float* weights, const int32_t* pred, int M,
+                  float* dp_out, int32_t* take_out, float* scratch,
+                  void* stream) {
+    if (M <= 0) return 0;
+    size_t smem = 0;
+    if (scratch == nullptr) {
+        smem = dp_bytes(M);
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                wis_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (e != cudaSuccess) return static_cast<int>(e);
+        }
+    }
+    wis_dp_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        weights, pred, M, dp_out, take_out, scratch);
+    return static_cast<int>(cudaGetLastError());
+}
+
 
 // Bytes of staging one window row needs (shared memory or global scratch).
 int wis_batch_row_bytes(int L) { return static_cast<int>(row_bytes(L)); }

@@ -1,4 +1,4 @@
-"""Batched WIS DP + backtrack as a hand-written CUDA kernel (K2).
+"""WIS DP kernels in hand-written CUDA: batched settle (K2), single window (K3).
 
 Replaces ``repro/kernels/wis_dp/kernel.py::wis_batch_pallas`` (body
 ``_batch_kernel``) plus the fused gather ``repro/kernels/wis_dp/ops.py::
@@ -9,11 +9,17 @@ load) in shared memory, or in a global scratch buffer once a row outgrows
 the block's shared memory, and one thread runs the sequential float32 DP
 and the backtrack.
 
-``wis_batch_cuda`` launches on ``torch.cuda.current_stream()`` -- the
-stream the scoring kernel ran on -- so the fused first pass reads the
+``wis_dp_cuda`` (K3) replaces ``wis_dp_pallas`` (body ``_dp_kernel``): the
+forward DP of one window, (dp, take) for M end-sorted lanes, from the same
+source file.  One block stages w, pred and dp in shared memory, or keeps dp
+in a global scratch once 12 M + 4 bytes pass the block's opt-in limit, and
+one thread runs the DP.
+
+Both launch on ``torch.cuda.current_stream()`` -- for ``wis_batch_cuda``
+the stream the scoring kernel ran on, so the fused first pass reads the
 in-flight score tensor with no host copy.  For tensors that lie on the CPU
-it runs the plain torch version (ref.py) instead; on a CUDA tensor it
-launches the kernel or raises.
+they run the plain torch versions (ref.py) instead; on a CUDA tensor they
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -23,13 +29,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..common import check_launch, check_tensor, load_kernel_library
-from .ref import fused_weights, wis_batch_reference
+from .ref import fused_weights, wis_batch_reference, wis_dp_reference
 
-__all__ = ["wis_batch_cuda", "LAUNCHES", "SHAPES"]
+__all__ = ["wis_batch_cuda", "wis_dp_cuda", "LAUNCHES", "SHAPES"]
 
 #: kernel launches (the wrapper adds one where it launches, nowhere else)
-LAUNCHES = {"wis_batch": 0}
-#: (W, L, fused, transformed) -> launches at that shape
+LAUNCHES = {"wis_batch": 0, "wis_dp": 0}
+#: (W, L, fused, transformed) -> launches of K2; ("wis_dp", M) -> of K3
 SHAPES: dict = {}
 
 _P = ctypes.c_void_p
@@ -38,6 +44,8 @@ _SIGNATURES = {
     "wis_batch_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "wis_batch_row_bytes": [_I],
     "wis_batch_smem_limit": [_I, ctypes.POINTER(ctypes.c_int)],
+    "wis_dp_launch": [_P, _P, _I, _P, _P, _P, _P],
+    "wis_dp_smem_bytes": [_I],
 }
 _SMEM_LIMIT: dict = {}
 
@@ -123,3 +131,39 @@ def wis_batch_cuda(pred: torch.Tensor, *, weights: Optional[torch.Tensor] = None
     key = (n_rows, lanes, fused, transform is not None)
     SHAPES[key] = SHAPES.get(key, 0) + 1
     return sel, totals
+
+
+def dp_uses_shared_memory(lanes: int, device: torch.device) -> bool:
+    """True when K3 stages a window of ``lanes`` lanes in shared memory."""
+    return int(_lib().wis_dp_smem_bytes(lanes)) <= smem_limit(device)
+
+
+def wis_dp_cuda(weights: torch.Tensor, pred: torch.Tensor,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dp (M,) f32, take (M,) bool) for (M,) end-sorted f32 weights and
+    int32 predecessor counts."""
+    device = weights.device
+    if device.type == "cpu":
+        return wis_dp_reference(weights, pred)
+
+    lanes = int(weights.shape[0]) if weights.dim() == 1 else -1
+    if lanes < 0:
+        raise ValueError(f"weights: expected (M,), got {tuple(weights.shape)}")
+    check_tensor(weights, "weights", torch.float32, (lanes,), device)
+    check_tensor(pred, "pred", torch.int32, (lanes,), device)
+    dp = torch.empty((lanes,), dtype=torch.float32, device=device)
+    take = torch.empty((lanes,), dtype=torch.int32, device=device)
+    if lanes == 0:
+        return dp, take.bool()
+    scratch = None
+    if not dp_uses_shared_memory(lanes, device):
+        scratch = torch.empty((lanes + 1,), dtype=torch.float32, device=device)
+    err = _lib().wis_dp_launch(
+        weights.data_ptr(), pred.data_ptr(), lanes, dp.data_ptr(),
+        take.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    check_launch(err, "wis_dp")
+    LAUNCHES["wis_dp"] += 1
+    key = ("wis_dp", lanes)
+    SHAPES[key] = SHAPES.get(key, 0) + 1
+    return dp, take.bool()

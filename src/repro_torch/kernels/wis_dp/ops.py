@@ -1,21 +1,26 @@
-"""Batched WIS settle dispatch: one launch clears every window of a round.
+"""WIS dispatch: the batched round settle and the single-window clear.
 
-The port's counterpart of the batched half of ``repro/kernels/wis_dp/
-ops.py``.  ``wis_settle_batch`` / ``wis_settle_fused`` are the forms behind
-the batched round settle (core/wis.py ``RoundSelector``).  Weights and
+The port's counterpart of ``repro/kernels/wis_dp/ops.py``.
+``wis_settle_batch`` / ``wis_settle_fused`` are the forms behind the
+batched round settle (core/wis.py ``RoundSelector``).  Weights and
 predecessor tables are runtime operands and shapes are pow2-bucketed by
 the caller.  The fused form gathers its weights from the IN-FLIGHT score
 tensor of the round's scoring launch, on the same stream, so scores flow
 into selection without a host round-trip.
 
+``wis_dp`` / ``wis_clear`` are the single-window forms: the forward DP of
+one window on the device (K3), with the float64 stable sort, the
+``searchsorted`` predecessors and the backtrack on the host, as in the
+reference.
+
 Backends: ``"cuda"`` is the hand-written kernel (kernel.py), ``"torch"``
-its plain torch version (ref.py).  The single-window ``wis_dp`` /
-``wis_clear`` forms (the TPU package's third kernel) and mesh sharding are
-not ported yet.
+its plain torch version (ref.py); for the single-window forms the
+reference's ``"pallas"`` lands on ``"cuda"`` and ``"ref"`` on ``"torch"``.
+Mesh sharding is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,11 +28,11 @@ import torch
 from ..common import build_counts as _build_counts
 from ..common import check_dispatch_fault, resolve_device
 from .kernel import LAUNCHES as _CUDA_LAUNCHES
-from .kernel import wis_batch_cuda
-from .ref import fused_weights, wis_batch_reference
+from .kernel import wis_batch_cuda, wis_dp_cuda
+from .ref import fused_weights, wis_batch_reference, wis_dp_reference
 
-__all__ = ["wis_settle_batch", "wis_settle_fused", "build_counts",
-           "launch_counts"]
+__all__ = ["wis_settle_batch", "wis_settle_fused", "wis_dp", "wis_clear",
+           "build_counts", "launch_counts"]
 
 
 def build_counts() -> dict:
@@ -110,3 +115,53 @@ def wis_settle_fused(scores, idx, mask, pred, *, impl: Optional[str] = None,
     if impl == "torch":
         return wis_batch_reference(fused_weights(scores, i, msk, tr), p)
     return wis_batch_cuda(p, scores=scores, idx=i, mask=msk, transform=tr)
+
+
+_DP_ALIASES = {"pallas": "cuda", "ref": "torch"}
+
+
+def wis_dp(weights, pred, *, impl: Optional[str] = None, device=None):
+    """(M,) end-sorted weights + predecessor counts → (dp (M,), take (M,) bool).
+
+    Tensors stay where they lie; arrays go to ``device`` (the card unless
+    asked).  ``impl`` None is ``"cuda"`` on the card, ``"torch"`` on the CPU.
+    """
+    dev = weights.device if isinstance(weights, torch.Tensor) \
+        else resolve_device(device)
+    impl = _impl_for(_DP_ALIASES.get(impl, impl), dev)
+    w = _on(weights, torch.float32, dev)
+    p = _on(pred, torch.int32, dev)
+    if impl == "torch":
+        return wis_dp_reference(w, p)
+    return wis_dp_cuda(w, p)
+
+
+def wis_clear(starts, ends, weights, *, impl: Optional[str] = None,
+              device=None) -> Tuple[np.ndarray, float]:
+    """Optimal WIS over one window: (selected indices, total) as the host
+    ``core.wis.wis_select`` returns them, with the DP on ``device``."""
+    starts = np.asarray(starts, np.float64)
+    ends = np.asarray(ends, np.float64)
+    weights = np.asarray(weights, np.float64)
+    m = starts.shape[0]
+    if m == 0:
+        return np.zeros((0,), np.int64), 0.0
+
+    order = np.argsort(ends, kind="stable")
+    s, e, w = starts[order], ends[order], weights[order]
+    pred = np.searchsorted(e, s, side="right").astype(np.int32)
+
+    dp, take = wis_dp(w.astype(np.float32), pred, impl=impl, device=device)
+    dp = dp.cpu().numpy()
+    take = take.cpu().numpy()
+
+    sel = []
+    j = m
+    while j > 0:
+        if take[j - 1]:
+            sel.append(j - 1)
+            j = pred[j - 1]
+        else:
+            j -= 1
+    sel = np.array(sel[::-1], dtype=np.int64)
+    return order[sel], float(dp[-1])

@@ -1,10 +1,16 @@
 """Serving launcher: continuous-batching engine for a ported arch.
 
 The port's counterpart of ``repro/launch/serve.py``, with the same flags
-plus ``--device`` (``cuda`` unless ``cpu`` is asked for).
+plus ``--device`` (``cuda`` unless ``cpu`` is asked for) and
+``--attn-impl``, the attention of each prefill: the reference's own
+``Model.prefill(impl=...)`` argument carried through to the launcher
+(``pallas`` or its alias ``cuda`` runs the flash-attention kernel K4 on
+the card; decode keeps ``auto``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \
         --reduced --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma_9b \
+        --attn-impl pallas
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ def main(argv=None):
                     help="seed for params init and synthetic prompts")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda or cpu)")
+    ap.add_argument("--attn-impl", default="auto",
+                    choices=("auto", "full", "chunked", "pallas", "cuda"),
+                    help="attention of each prefill (decode keeps auto)")
     ap.add_argument("--json", action="store_true",
                     help="emit a machine-readable result line")
     args = ap.parse_args(argv)
@@ -42,7 +51,8 @@ def main(argv=None):
     model = Model(cfg)
     params = model.init(args.seed, device=device)
     eng = ServingEngine(model, params, ServeConfig(
-        batch_slots=args.slots, max_seq=args.max_seq), device=device)
+        batch_slots=args.slots, max_seq=args.max_seq), device=device,
+        attn_impl=args.attn_impl)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -58,6 +68,7 @@ def main(argv=None):
     if args.json:
         print(json.dumps({
             "arch": cfg.name, "seed": args.seed, "device": str(device),
+            "attn_impl": args.attn_impl,
             "requests": len(reqs), "tokens": toks, "wall_s": round(wall, 4),
             "tok_per_s": round(toks / wall, 2) if wall > 0 else None,
             "unfinished": stuck,

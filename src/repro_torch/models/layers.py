@@ -8,7 +8,16 @@ Attention implementations:
   * ``full``     — materialized logits; fine for short seq / decode.
   * ``chunked``  — a loop over q chunks, full-T softmax per chunk; bounds
                    transient memory to O(cq·T).
-  * ``pallas``   — the flash-attention TPU kernel (K4), not ported yet.
+  * ``pallas``   — flash attention (``kernels/flash_attention``): the
+                   hand-written CUDA kernel K4 on the card, its plain
+                   version on the CPU; ``"cuda"`` is the same path.  The
+                   kernel takes ONE query offset per call, so the
+                   positions must be ``q_offset + arange(S)`` in every row
+                   and the keys' ``arange(T)``; anything else (per-slot
+                   decode, a ring cache) raises ValueError.  The offset is
+                   read from ``q_positions``, not taken as ``T − S`` as the
+                   reference does: the two differ whenever the keys are a
+                   cache longer than the prompt (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["rms_norm", "layer_norm", "rope", "attention", "mlp", "gelu"]
 
@@ -107,6 +118,23 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, scale, chunk_q):
     return torch.cat(outs, dim=1)
 
 
+def _one_offset(q_positions, k_positions) -> int:
+    """The one query offset the positions express, or ValueError."""
+    s, t = q_positions.shape[1], k_positions.shape[1]
+    dev = q_positions.device
+    rel = q_positions - torch.arange(s, device=dev)
+    bad = (rel != rel[:1, :1]).any() | \
+        (k_positions != torch.arange(t, device=dev)).any()
+    offset, bad = torch.stack([rel[0, 0].long(), bad.long()]).tolist()
+    if bad:
+        raise ValueError(
+            "attention impl 'pallas' runs a kernel that takes one query "
+            "offset per call: q_positions must be q_offset + arange(S) in "
+            "every row and k_positions arange(T) (per-slot decode and ring "
+            "caches go through 'auto', 'full' or 'chunked')")
+    return offset
+
+
 def attention(
     q, k, v,
     *,
@@ -125,11 +153,13 @@ def attention(
         scale = 1.0 / math.sqrt(hd)
     if impl == "auto":
         impl = "full" if (s * t <= 4096 * 4096 or s == 1) else "chunked"
-    if impl == "pallas":
-        raise NotImplementedError(
-            "attention impl 'pallas' is the flash-attention TPU kernel "
-            "(K4, repro/kernels/flash_attention/kernel.py::mha_pallas), which "
-            "is not ported yet (ROADMAP.md §2); use 'full' or 'chunked'")
+    if impl in ("pallas", "cuda"):
+        q_offset = _one_offset(q_positions, k_positions)
+        out = flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, scale=scale, q_offset=q_offset,
+            impl="cuda")
+        return out.transpose(1, 2)
     if impl == "full":
         return _sdpa_full(q, k, v, q_positions, k_positions, causal=causal,
                           window=window, scale=scale)

@@ -10,6 +10,13 @@ vector.  Finished slots (EOS or max_new_tokens) free immediately and the
 next queued request claims them -- classic continuous batching.  Tokens
 are picked on the host from the full padded-vocab logits, as the
 reference picks them.
+
+``attn_impl`` is the reference's own ``Model.prefill(impl=...)`` argument
+(its trainer calls it ``attn_impl``), carried through to the engine: it
+picks the attention of each prefill only -- ``"pallas"`` runs the
+flash-attention kernel (K4) on the card.  Decode steps keep ``"auto"``: one
+call of the kernel takes one query offset, and the slots sit at
+different depths.
 """
 from __future__ import annotations
 
@@ -46,10 +53,13 @@ class ServeConfig:
 
 
 class ServingEngine:
-    def __init__(self, model: Model, params, cfg: ServeConfig, *, device=None):
+    def __init__(self, model: Model, params, cfg: ServeConfig, *, device=None,
+                 attn_impl: str = "auto"):
         """Serve ``model`` with ``params`` on ``device`` (the card unless
-        ``"cpu"`` is asked for; the params must already lie there)."""
+        ``"cpu"`` is asked for; the params must already lie there), its
+        prefills through attention ``attn_impl``."""
         self.model = model
+        self.attn_impl = attn_impl
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -63,7 +73,8 @@ class ServingEngine:
 
     # -- the two model calls (the reference jits these) ---------------------
     def _prefill(self, tokens: torch.Tensor):
-        return self.model.prefill(self.params, tokens, max_seq=self.cfg.max_seq)
+        return self.model.prefill(self.params, tokens, impl=self.attn_impl,
+                                  max_seq=self.cfg.max_seq)
 
     def _decode(self, tok: torch.Tensor, idx: torch.Tensor):
         return self.model.decode_step(self.params, tok, idx, self.cache)

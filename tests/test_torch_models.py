@@ -235,8 +235,8 @@ def test_attention_impls():
     chunked = attention(q, k, v, q_positions=pos, k_positions=pos,
                         impl="chunked", chunk_q=16)
     np.testing.assert_allclose(chunked.numpy(), full.numpy(), atol=2e-5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        attention(q, k, v, q_positions=pos, k_positions=pos, impl="pallas")
+    pallas = attention(q, k, v, q_positions=pos, k_positions=pos, impl="pallas")
+    np.testing.assert_allclose(pallas.numpy(), full.numpy(), atol=2e-5)
 
 
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_9b"])

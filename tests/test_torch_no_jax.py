@@ -37,9 +37,13 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # every module of the two slices imported: the auction round, and the
-    # linear scan, models, configs, serving engine and launcher
+    # every module of the three slices imported: the auction round; the
+    # linear scan, models, configs, serving engine and launcher; flash
+    # attention and the single-window WIS
     assert int(out.stdout.strip()) > 50
+    for name in ("kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+                 "kernels.flash_attention.ref", "kernels.wis_dp.ops"):
+        assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -67,6 +71,13 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         score_variants([[0.5]], [[0.5]], [1.0], [1.0], [[0.0]], [[0.0]],
                        lam=0.5, capacity=1.0, theta=1.0)
+    from repro_torch.kernels import wis_clear
+    from repro_torch.kernels.wis_dp.ops import wis_dp
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wis_clear([0.0], [1.0], [1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wis_dp([1.0], [0])
     model = Model(reduced("falcon_mamba_7b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(0)
@@ -74,6 +85,9 @@ def test_cuda_device_without_card_raises(monkeypatch):
         ServingEngine(model, model.init(0, device="cpu"), ServeConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "falcon_mamba_7b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "recurrentgemma_9b", "--reduced",
+                    "--attn-impl", "pallas"])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -88,3 +102,21 @@ def test_missing_toolkit_is_a_plain_error(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError) as info:
         common.build_all(["jasda_score"])
     assert not isinstance(info.value, common.KernelDispatchError)
+
+
+def test_every_kernel_source_has_a_wrapper():
+    """Each csrc/*.cu is loaded by a kernel.py, and every C function the
+    wrapper binds is defined in that source."""
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.jasda_score import kernel as k1
+    from repro_torch.kernels.linear_scan import kernel as k5
+    from repro_torch.kernels.wis_dp import kernel as k2
+
+    wrappers = {"flash_attention": k4, "jasda_score": k1, "linear_scan": k5,
+                "wis_batch": k2}
+    sources = sorted(p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu"))
+    assert sources == sorted(wrappers)
+    for name, mod in wrappers.items():
+        text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        for fn in mod._SIGNATURES:
+            assert f"int {fn}(" in text, (name, fn)
