@@ -24,10 +24,17 @@ Phases (any failure exits non-zero and prints no result):
    2e-5 (float32) / 2e-2 (bfloat16), atol and rtol: recurrentgemma's local
    attention (1, 16, S, 256) on one kv head, window 2048, bfloat16, at
    S = 1024, 2500 and 4096; qwen3-14b's GQA widths (1, 40, 4096, 128) on 8
-   kv heads; Sq = 128 against Sk = 384 (q_offset 256) in float32; and one
-   non-causal float32 case.  Each is timed beside its plain version, one
+   kv heads; Sq = 128 against Sk = 384 (q_offset 256) and one non-causal
+   case, each in float32 and in bfloat16.  Each case prints the kernel it
+   ran (``flash_attention_path``: the tensor cores for bfloat16 at D >= 64,
+   else the CUDA cores), and the tensor-core cases are also held against
+   ``mha_tiled_reference`` within 1e-2.  Each is timed beside its plain
+   version, the CUDA-core kernel on the same bfloat16 input, one
    ``scaled_dot_product_attention`` call (a yardstick the port never calls)
-   and its bound;
+   and its bound; the tensor-core kernel must take at most 0.6 ms at
+   (1, 16, 4096, 256), 1.2 ms at (1, 40, 4096, 128), beat SDPA at S = 2500
+   and 4096, and be 4x faster than the CUDA-core kernel on every bfloat16
+   case;
 2e. the single-window WIS kernel (K3) against its plain version at M =
    2048, 16384 (shared memory past 48 KB) and 65536 (global scratch): dp
    bit-equal, take equal.  Then ``wis_clear`` on the card (its K3 launches
@@ -60,9 +67,11 @@ Phases (any failure exits non-zero and prints no result):
    ``"auto"``.  K4 must launch 12 x 8 times on 8 shapes and K5 26 x 8 times
    in each run; where the auto run's top-1 margin exceeds twice the largest
    gap between the two runs' prefill logits, the first token must agree.
-   The K4 traffic is served once more under torch.profiler, as in phase 4,
-   and ``python -m repro_torch.launch.serve --arch recurrentgemma_9b
-   --attn-impl pallas`` serves its 8 default requests on the card.
+   The K4 traffic is served once more under torch.profiler, as in phase 4;
+   the 4096-token prefill through K4 must beat auto's, and K4 must take
+   under 5% of prefill device time.  Then ``python -m
+   repro_torch.launch.serve --arch recurrentgemma_9b --attn-impl pallas``
+   serves its 8 default requests on the card.
    The reduced config (float32) on the card through K4 and K5 must match
    the host within 1e-4 over a prefill and 8 decode steps.
 
@@ -125,6 +134,26 @@ def time_ms(torch, fn, *, reps: int, inner: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def ptxas_report(log_text: str):
+    """(kernel, registers and spills) for each entry function in a ptxas -v
+    log; the kernel is its name and template arguments, read from the
+    mangled name (``flash_attention_tc_kernel<Li256>``)."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(r"([a-z_]+_kernel)I(.+?)EE", entry.group(1))
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else entry.group(1)[-60:]
+        elif "spill" in line:
+            spill = line.split(":")[-1].strip() if ":" in line else line.strip()
+        elif "registers" in line and fn is not None:
+            out.append((fn, f"{line.split(':', 1)[1].strip()}; {spill}"))
+            fn, spill = None, ""
+    return out
 
 
 def ulp_gap(torch, a, b) -> int:
@@ -392,9 +421,23 @@ ATTN_CASES = (
     (1, 40, 8, 4096, 4096, 128, "bfloat16", True, None, 0),
     (2, 4, 2, 128, 384, 64, "float32", True, None, 256),
     (1, 8, 2, 1000, 1000, 128, "float32", False, None, 0),
+    (2, 4, 2, 128, 384, 64, "bfloat16", True, None, 256),
+    (1, 8, 2, 1000, 1000, 128, "bfloat16", False, None, 0),
 )
 ATTN_MAIN = ATTN_CASES[2]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+#: head dims whose bfloat16 calls run on the tensor-core kernel
+ATTN_TC_HEAD_DIMS = (64, 128, 256)
+#: the tensor-core kernel against ref.mha_tiled_reference, which models its
+#: tiles and roundings: one bfloat16 rounding of the output apart
+ATTN_TILED_TOL = 1e-2
+#: time limits (ms) of the tensor-core kernel: recurrentgemma's 4096-token
+#: prefill shape and the GQA widths
+ATTN_LIMIT_MS = {ATTN_CASES[2]: 0.6, ATTN_CASES[3]: 1.2}
+#: the tensor-core kernel must beat one SDPA call at these shapes
+ATTN_BEATS_SDPA = (ATTN_CASES[1], ATTN_CASES[2])
+#: ... and be this many times faster than the CUDA-core kernel on bf16 input
+ATTN_SPEEDUP = 4.0
 
 
 def keys_seen(np, sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
@@ -432,14 +475,21 @@ def sdpa_ms(torch, q, k, v, *, causal, window, q_offset, scale):
 
 
 def check_attention_kernel(np, torch, dev, k4, ref):
-    """K4 against its plain version within the kernel tests' tolerances;
-    times beside the plain version, SDPA and the bound."""
+    """K4 against its plain version within the kernel tests' tolerances, and
+    the tensor-core kernel against its tiled model; times beside the plain
+    version, the CUDA-core kernel (bfloat16 cases), SDPA and the bound."""
     lib = k4._lib()
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for n, case in enumerate(ATTN_CASES):
         b, hq, hkv, sq, sk, d, dt, causal, window, off = case
         dtype = getattr(torch, dt)
+        code = k4._DTYPES[dtype]
+        path = lib.flash_attention_path(code, d)
+        if path != int(dt == "bfloat16" and d in ATTN_TC_HEAD_DIMS):
+            raise AssertionError(f"flash_attention_path({dt}, {d}) = {path}: "
+                                 "bf16 at D = 64, 128, 256 takes the tensor "
+                                 "cores (1), the rest the CUDA cores (0)")
         g = torch.Generator(device=dev)
         g.manual_seed(SEED + 30 + n)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -449,8 +499,9 @@ def check_attention_kernel(np, torch, dev, k4, ref):
         want = ref.mha_reference(q, k, v, causal=causal, window=window,
                                  q_offset=off)
         torch.cuda.synchronize()
+        kind = "tensor cores" if path else "CUDA cores"
         name = (f"K4 flash_attention ({b}, {hq}, {sq}, {d}) kv {hkv} Sk {sk} "
-                f"{dt} causal={causal} window={window} q_offset={off}")
+                f"{dt} causal={causal} window={window} q_offset={off} [{kind}]")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{name}: non-finite output")
         err = (out.float() - want.float()).abs()
@@ -460,15 +511,28 @@ def check_attention_kernel(np, torch, dev, k4, ref):
         if n_bad:
             raise AssertionError(f"{name}: {n_bad} entries outside atol = rtol "
                                  f"= {tol} (max abs {max_err})")
+        tiled_err = None
+        if path:
+            tiled = ref.mha_tiled_reference(q, k, v, causal=causal,
+                                            window=window, q_offset=off).float()
+            terr = (out.float() - tiled).abs()
+            tiled_err = float(terr.max().item())
+            n_bad = int((terr > ATTN_TILED_TOL * (1 + tiled.abs())).sum().item())
+            if n_bad:
+                raise AssertionError(
+                    f"{name}: {n_bad} entries outside atol = rtol = "
+                    f"{ATTN_TILED_TOL} of the tiled model (max abs {tiled_err})")
+            del tiled, terr
         o_raw = torch.empty_like(q)
 
-        def raw():  # the kernel alone: no validation or allocation per call
-            lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o_raw.data_ptr(), b,
-                hq, hkv, sq, sk, d, k4._DTYPES[dtype], int(causal),
+        def raw(on=path):  # the kernel alone: no validation or allocation per call
+            lib.flash_attention_launch_on(
+                on, q.data_ptr(), k.data_ptr(), v.data_ptr(), o_raw.data_ptr(), b,
+                hq, hkv, sq, sk, d, code, int(causal),
                 0 if window is None else window, off, scale, stream)
 
         ms = time_ms(torch, raw, reps=5, inner=3)
+        cc_ms = time_ms(torch, lambda: raw(0), reps=3, inner=1) if path else None
         plain_ms = time_ms(torch, lambda: ref.mha_reference(
             q, k, v, causal=causal, window=window, q_offset=off), reps=3, inner=1)
         lib_ms = sdpa_ms(torch, q, k, v, causal=causal, window=window,
@@ -479,26 +543,57 @@ def check_attention_kernel(np, torch, dev, k4, ref):
         peak = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
         bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak)
         lib_txt = "refused" if lib_ms is None else f"{lib_ms:.4f} ms"
-        log(f"{name}: within {tol} (max abs {max_err:.3g}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound {bound_s * 1e3:.5f} "
-            f"ms ({n_ops} flops over {seen} (row, key) pairs per head, "
-            f"{n_bytes} bytes)")
+        cc_txt = "" if cc_ms is None else f", CUDA-core kernel {cc_ms:.4f} ms"
+        tiled_txt = ("" if tiled_err is None else f", tiled model within "
+                     f"{ATTN_TILED_TOL} (max abs {tiled_err:.3g})")
+        log(f"{name}: within {tol} (max abs {max_err:.3g}){tiled_txt}, kernel "
+            f"{ms:.4f} ms{cc_txt}, plain {plain_ms:.3f} ms, SDPA {lib_txt}, bound "
+            f"{bound_s * 1e3:.5f} ms ({100 * bound_s * 1e3 / ms:.1f}% of it; "
+            f"{n_ops} flops over {seen} (row, key) pairs per head, {n_bytes} bytes)")
         rows.append({
             "shape": [b, hq, hkv, sq, sk, d], "dtype": dt, "causal": causal,
-            "window": window, "q_offset": off, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_s * 1e3,
+            "window": window, "q_offset": off,
+            "path": "tensor_cores" if path else "cuda_cores",
+            "max_abs_err": max_err, "max_abs_err_tiled": tiled_err,
+            "ms": ms, "cuda_core_ms": cc_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / peak
             else "operations",
         })
         del q, k, v, out, want, err, o_raw
         torch.cuda.empty_cache()
+    attention_gates(rows)
     main = rows[ATTN_CASES.index(ATTN_MAIN)]
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                  "bound_ms", "bound_by")} | {
         "shape": {"B": 1, "Hq": 16, "Hkv": 1, "S": 4096, "D": 256,
                   "dtype": "bfloat16", "window": 2048},
         "cases": rows}
+
+
+def attention_gates(rows) -> None:
+    """The tensor-core kernel's time limits: absolute at two shapes, ahead
+    of SDPA at two, and ATTN_SPEEDUP x the CUDA-core kernel on bf16."""
+    by_case = dict(zip(ATTN_CASES, rows))
+    missed = []
+    for case, limit in ATTN_LIMIT_MS.items():
+        if not by_case[case]["ms"] <= limit:
+            missed.append(f"{case}: {by_case[case]['ms']:.4f} ms > {limit} ms")
+    for case in ATTN_BEATS_SDPA:
+        r = by_case[case]
+        if r["library_ms"] is not None and not r["ms"] < r["library_ms"]:
+            missed.append(f"{case}: {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
+    for case, r in by_case.items():
+        if r["cuda_core_ms"] is not None and not (
+                r["ms"] * ATTN_SPEEDUP <= r["cuda_core_ms"]):
+            missed.append(f"{case}: {r['ms']:.4f} ms, not {ATTN_SPEEDUP}x under "
+                          f"the CUDA-core kernel's {r['cuda_core_ms']:.4f} ms")
+    if missed:
+        raise AssertionError("K4 time limits missed: " + "; ".join(missed))
+    limits = ", ".join(f"{c[3]}x{c[5]} <= {v} ms" for c, v in ATTN_LIMIT_MS.items())
+    log(f"K4 time limits hold: {limits}, ahead of SDPA at S = "
+        f"{[c[3] for c in ATTN_BEATS_SDPA]}, every bf16 case >= {ATTN_SPEEDUP}x "
+        "faster than the CUDA-core kernel")
 
 
 def dp_window(np, m: int, seed: int):
@@ -1003,6 +1098,7 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
     out["device_busy"] = serving_profile(
         torch, dev, Model(cfg), params, prompts, max_new, pal["t"], card,
         max_seq=max_seq, attn_impl="pallas")
+    k4_prefill_gates(out, lens)
     del params, runs, pal, auto
     torch.cuda.empty_cache()
 
@@ -1056,12 +1152,39 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
     return out
 
 
+#: K4's largest share of the K4 run's prefill device time
+K4_PREFILL_SHARE = 0.05
+
+
+def k4_prefill_gates(out: dict, lens) -> None:
+    """The longest prompt's prefill through K4 must beat "auto"'s; K4 must
+    take under K4_PREFILL_SHARE of prefill device time where the profiler
+    measured it."""
+    i = lens.index(max(lens))
+    pal_ms, auto_ms = out["pallas"]["prefill_ms"][i], out["auto"]["prefill_ms"][i]
+    share = None
+    busy = out["device_busy"]
+    if busy is not None and busy["busy_s"]["prefill"] > 0:
+        share = busy["groups"]["prefill"].get("K4", 0.0) / busy["busy_s"]["prefill"]
+    out["k4_prefill_share"] = share
+    share_txt = "not measured" if share is None else f"{100 * share:.2f}%"
+    log(f"{lens[i]}-token prefill: {pal_ms:.2f} ms through K4, {auto_ms:.2f} ms "
+        f"through auto; K4 share of prefill device time {share_txt}")
+    if not pal_ms < auto_ms:
+        raise AssertionError(f"the {lens[i]}-token prefill through K4 "
+                             f"({pal_ms:.2f} ms) is not faster than auto "
+                             f"({auto_ms:.2f} ms)")
+    if share is not None and not share < K4_PREFILL_SHARE:
+        raise AssertionError(f"K4 takes {100 * share:.2f}% of prefill device "
+                             f"time, limit {100 * K4_PREFILL_SHARE}%")
+
+
 def kernel_group(name: str) -> str:
     """The kind of work a device activity does, read from its name."""
     n = name.lower()
     if "linear_scan_kernel" in n:
         return "K5"
-    if "flash_attention_kernel" in n:
+    if "flash_attention_kernel" in n or "flash_attention_tc_kernel" in n:
         return "K4"
     if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "gemm"
@@ -1245,9 +1368,8 @@ def main() -> int:
     reports = common.build_all()
     log(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, regs in ptxas_report(report):
+            log(f"  ptxas {name} {fn}: {regs}")
 
     scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
     k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)

@@ -1,14 +1,21 @@
-"""Flash attention as a hand-written CUDA kernel (K4).
+"""Flash attention as hand-written CUDA kernels (K4).
 
 Replaces ``repro/kernels/flash_attention/kernel.py::mha_pallas`` (body
 ``_attn_kernel``).  Source: ``kernels/csrc/flash_attention.cu`` (its header
-says what bounds it on an H100 and what the design does about it): one
-block per 32 query rows of one (batch, kv head), so the q heads of a kv
-head share each K/V tile staged in shared memory; one warp per 4 rows, an
-online softmax in float32 registers, and key tiles that no row of the block
-can see skipped by the loop bounds.  It takes float32 or bfloat16 inputs,
-head dims 16, 32, 64, 128 and 256, and any Sq and Sk; the output has q's
-dtype.
+says what bounds each path on an H100 and what the design does about it).
+One C entry point takes one of two kernels:
+
+* bfloat16 at head dims 64, 128 and 256 runs on the tensor cores: one block
+  per 128 query rows of one (batch, kv head) in two warpgroups, K/V tiles
+  of 64 keys (128 at head dim 128) brought by TMA into a 2-stage ring,
+  S = Q Kᵀ and O += P V by ``wgmma``, the online softmax in float32
+  registers (``mha_tiled_reference`` in ref.py models its arithmetic);
+* float32 at any head dim, and bfloat16 at 16 and 32, run on the CUDA cores:
+  one block per 32 rows, one warp per 4 rows, float32 FMAs.
+
+Both order a block's rows (position, head in group), so the q heads of a kv
+head share each K/V tile, and skip key tiles that no row of the block can
+see.  Any Sq and Sk work; the output has q's dtype.
 
 ``mha_cuda`` launches on ``torch.cuda.current_stream()``.  For tensors that
 lie on the CPU it runs the plain torch version (ref.py) instead; on a CUDA
@@ -31,7 +38,7 @@ __all__ = ["mha_cuda", "check_rows_see_keys", "LAUNCHES", "SHAPES",
 LAUNCHES = {"flash_attention": 0}
 #: (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset) -> launches
 SHAPES: dict = {}
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +47,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P],
+    "flash_attention_launch_on": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, ctypes.c_float, _P],
+    "flash_attention_path": [_I, _I],
 }
 
 
