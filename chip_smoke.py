@@ -10,12 +10,23 @@ Phases (any failure exits non-zero and prints no result):
    parallel) with its ptxas report;
 2. each kernel against its plain torch version on the card, on seeded
    inputs at the main path's shapes: the Eq. 4 score + FMP safety kernel
-   (K1) at M = 32768, T = 32, and the batched WIS settle kernel (K2) at
-   W = 64 windows, L = 2048 lanes plus one L whose row needs more than 48 KB
-   of shared memory and one past the shared-memory limit (global scratch),
-   fused with and without a transform.  Scores and totals must be bit-equal,
-   eligibility and selections exactly equal.  Each kernel is timed with CUDA
-   events beside its plain version and its bound;
+   (K1) at M = 32768, T = 32, and at M in {256, 1000} x T in {1, 7, 33,
+   64}, where the block's rows x grid points do not divide evenly; the
+   batched WIS settle kernel (K2) at W = 64 windows, L = 2048 lanes, the
+   re-clear shape (8, 2048), L = 1000 with an all-masked row, a row set
+   with zero-length intervals (taken lanes whose pred lies past them: the
+   bounded-walk backtrack), one L whose row needs more than 48 KB of
+   shared memory and one past the shared-memory limit (global scratch),
+   fused with and without a transform; in each case the kernel reports,
+   per row, whether it backtracked by pointer doubling or by the walk,
+   and those rows must be the ones the reference predicts.  Scores and
+   totals must be bit-equal, eligibility and selections exactly equal.
+   Each kernel is timed with CUDA events beside its plain version and its
+   bound, raw launches back to back; K1 and K2, whose kernels take about
+   what the host needs to launch one from Python, are also timed as
+   launches replayed in one CUDA graph, printed beside.  K1 must take at
+   most 0.011 ms at M = 32768, T = 32 and K2 at most 0.06 ms at (64, 2048)
+   fused, launched one by one;
 2c. the linear-scan kernel (K5) against its plain version at the mamba
    prefill's shapes, (1, T, 131072) float32 for T in {1, 37, 512, 1024},
    with and without h0, the RG-LRU width (1, 512, 4096) and one bfloat16
@@ -68,8 +79,9 @@ Phases (any failure exits non-zero and prints no result):
    in each run; where the auto run's top-1 margin exceeds twice the largest
    gap between the two runs' prefill logits, the first token must agree.
    The K4 traffic is served once more under torch.profiler, as in phase 4;
-   the 4096-token prefill through K4 must beat auto's, and K4 must take
-   under 5% of prefill device time.  Then ``python -m
+   the 4096-token prefill through K4 must beat auto's in the serving runs
+   and again as medians of three prefills of each, timed in turns; K4 must
+   take under 5% of prefill device time.  Then ``python -m
    repro_torch.launch.serve --arch recurrentgemma_9b --attn-impl pallas``
    serves its 8 default requests on the card.
    The reduced config (float32) on the card through K4 and K5 must match
@@ -136,6 +148,37 @@ def time_ms(torch, fn, *, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def time_graph_ms(torch, launch, *, reps: int, inner: int) -> float:
+    """Median per-launch device time (ms) of ``inner`` launches replayed as
+    one CUDA graph: ``launch(stream)`` enqueues one kernel on the stream it
+    is given.  Back-to-back launches from Python take the host several
+    microseconds each, which floors :func:`time_ms` for a kernel that short;
+    a graph replays them with no gap between kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(inner):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def ptxas_report(log_text: str):
     """(kernel, registers and spills) for each entry function in a ptxas -v
     log; the kernel is its name and template arguments, read from the
@@ -171,10 +214,12 @@ def ulp_gap(torch, a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
-def score_inputs(np, torch, dev, m: int, t: int):
+def score_inputs(np, torch, dev, m: int, t: int, n_pad: int = 256,
+                 seed: int = SEED):
     """Round-path operands: ĥ column (Fj = 1, α = [1]), Fs = 4, T grid points,
-    heterogeneous caps/θ, ~10% σ = 0 points, and a final pad-row block."""
-    rng = np.random.default_rng(SEED)
+    heterogeneous caps/θ, ~10% σ = 0 points, and a final block of n_pad
+    pad rows."""
+    rng = np.random.default_rng(seed)
     fj = rng.uniform(0, 1, (m, 1)).astype(np.float32)
     fs = rng.uniform(0, 1, (m, 4)).astype(np.float32)
     al = np.array([1.0], np.float32)
@@ -188,7 +233,7 @@ def score_inputs(np, torch, dev, m: int, t: int):
     sg[rng.uniform(size=(m, t)) < 0.1] = 0.0
     lam = rng.uniform(0.2, 0.8, m).astype(np.float32)
     theta = rng.uniform(0.01, 0.3, m).astype(np.float32)
-    pad = slice(m - 256, m)  # bucket padding as ops.score_variants writes it
+    pad = slice(m - n_pad, m)  # bucket padding as ops.score_variants writes it
     fj[pad] = 0.0
     fs[pad] = 0.0
     mu[pad] = 1.0
@@ -198,20 +243,39 @@ def score_inputs(np, torch, dev, m: int, t: int):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-def check_score_kernel(np, torch, dev, k1, ref):
-    m, t = 32768, 32
-    args = score_inputs(np, torch, dev, m, t)
+#: (M, T) beside the round path's: rows x grid points that do not fill
+#: K1's blocks of 128 rows, and T past its 32-point staging pass
+SCORE_EXTRA = tuple((m, t) for m in (256, 1000) for t in (1, 7, 33, 64))
+K1_LIMIT_MS = 0.011
+K2_LIMIT_MS = 0.06
+
+
+def compare_scores(torch, k1, ref, args, name: str):
+    """K1 against its plain version on one input: (score, elig, ulps, err)."""
     score, elig = k1.score_variants_cuda(*args)
     p_score, p_elig, _ = ref.score_variants_reference(
         *args[:6], lam=args[6], capacity=args[7], theta=args[8])
     torch.cuda.synchronize()
     if not torch.equal(elig, p_elig):
         raise AssertionError(
-            f"K1 eligibility differs on {int((elig != p_elig).sum())} rows")
+            f"{name}: eligibility differs on {int((elig != p_elig).sum())} rows")
     gap = ulp_gap(torch, score, p_score)
     err = float((score - p_score).abs().max().item())
     if gap != 0:
-        raise AssertionError(f"K1 scores differ by {gap} ulps (max abs {err})")
+        raise AssertionError(f"{name}: scores differ by {gap} ulps (max abs {err})")
+    return score, elig, gap, err
+
+
+def check_score_kernel(np, torch, dev, k1, ref):
+    for n, (m_x, t_x) in enumerate(SCORE_EXTRA):
+        args = score_inputs(np, torch, dev, m_x, t_x, n_pad=16, seed=SEED + 50 + n)
+        _, elig, _, _ = compare_scores(torch, k1, ref, args,
+                                       f"K1 M={m_x} T={t_x}")
+        log(f"K1 jasda_score M={m_x} T={t_x}: scores bit-equal, eligibility "
+            f"equal ({int(elig.sum())} eligible)")
+    m, t = 32768, 32
+    args = score_inputs(np, torch, dev, m, t)
+    score, elig, gap, err = compare_scores(torch, k1, ref, args, "K1")
     if elig[m - 256:].any() or score[m - 256:].any():
         raise AssertionError("K1 pad rows are not self-masking")
     n_elig = int(elig.sum().item())
@@ -226,11 +290,12 @@ def check_score_kernel(np, torch, dev, k1, ref):
     ptrs = [a.data_ptr() for a in args]
     stream = torch.cuda.current_stream().cuda_stream
 
-    def raw():  # the kernel alone: no validation or allocation per call
+    def raw(on=stream):  # the kernel alone: no validation or allocation per call
         lib.jasda_score_launch(*ptrs, m, 1, 4, t, out_s.data_ptr(),
-                               out_e.data_ptr(), stream)
+                               out_e.data_ptr(), on)
 
     ms = time_ms(torch, raw, reps=21, inner=50)
+    graph_ms = time_graph_ms(torch, raw, reps=21, inner=50)
     plain_ms = time_ms(torch, lambda: ref.score_variants_reference(
         *args[:6], lam=args[6], capacity=args[7], theta=args[8]),
         reps=5, inner=3)
@@ -241,25 +306,39 @@ def check_score_kernel(np, torch, dev, k1, ref):
     n_ops = m * (2 * (1 + 4) + 4 + 8 * t + 2)
     bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
     log(f"K1 jasda_score M={m} T={t}: eligible {n_elig}/{m - 256}, scores "
-        f"bit-equal (0 ulps), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_s * 1e3:.4f} ms ({n_bytes} bytes)")
+        f"bit-equal (0 ulps), kernel {ms:.4f} ms launched one by one "
+        f"({graph_ms:.4f} ms a launch replayed in a CUDA graph), plain "
+        f"{plain_ms:.3f} ms, bound "
+        f"{bound_s * 1e3:.4f} ms ({n_bytes} bytes)")
+    if ms > K1_LIMIT_MS:
+        raise AssertionError(f"K1 takes {ms:.4f} ms at M={m} T={t}, over "
+                             f"{K1_LIMIT_MS} ms")
     return score, {
-        "max_abs_err": err, "ulps": gap, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_s * 1e3,
+        "max_abs_err": err, "ulps": gap, "ms": ms, "graph_ms": graph_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
         else "operations",
         "shape": {"M": m, "Fj": 1, "Fs": 4, "T": t},
     }
 
 
-def settle_inputs(np, torch, dev, n_rows: int, lanes: int, m_pad: int, seed: int):
+def settle_inputs(np, torch, dev, n_rows: int, lanes: int, m_pad: int, seed: int,
+                  *, zero_rows: int = 0, masked_row=None):
     """(W, L) sorted lanes over a pool of m_pad rows: idx (−1 on ~20% pads),
-    predecessors from the host's float64 stable sort, a transform."""
+    predecessors from the host's float64 stable sort, a transform.  The
+    first ``zero_rows`` rows get ~30% zero-length intervals (pred past the
+    lane); ``masked_row`` has every lane masked."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, m_pad, (n_rows, lanes)).astype(np.int32)
     idx[rng.random((n_rows, lanes)) < 0.2] = -1
+    if masked_row is not None:
+        idx[masked_row] = -1
     starts = rng.integers(0, 4 * lanes, (n_rows, lanes)) / 2.0
     ends = starts + rng.integers(1, 64, (n_rows, lanes)) / 2.0
+    if zero_rows:
+        zero = rng.random((n_rows, lanes)) < 0.3
+        zero[zero_rows:] = False
+        ends = np.where(zero, starts, ends)
     order = np.argsort(ends, axis=1, kind="stable")
     e_s = np.take_along_axis(ends, order, axis=1)
     s_s = np.take_along_axis(starts, order, axis=1)
@@ -271,17 +350,60 @@ def settle_inputs(np, torch, dev, n_rows: int, lanes: int, m_pad: int, seed: int
             for k, v in t.items()}
 
 
+#: (W, L, form, options): the round path's first pass and a re-clear,
+#: L = 1000 with an all-masked row, zero-length intervals in half the rows,
+#: a row past 48 KB of shared memory and one past the limit
+SETTLE_CASES = (
+    (64, 2048, "fused", {}), (64, 2048, "fused+transform", {}),
+    (64, 2048, "batched", {}), (8, 2048, "batched", {}),
+    (64, 1000, "fused", {"masked_row": 5}),
+    (64, 2048, "fused+transform", {"zero_rows": 32}),
+    (64, 16384, "fused+transform", {}), (64, 32768, "fused", {}),
+)
+
+
+def backtrack_paths(torch, dev, k2, n_rows, lanes, sel, tot, *, w=None,
+                    scores=None, t=None, transform=None):
+    """The backtrack K2 took on each row, read from the kernel: one more
+    launch on the same operands through ``wis_batch_launch_paths``, whose
+    selections and totals must equal ``sel`` and ``tot`` (the wrapper's).
+    (W,) bool, True where the row took the bounded walk."""
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    fused = w is None
+    sel2 = torch.empty_like(sel)
+    tot2 = torch.empty_like(tot)
+    paths = torch.full((n_rows,), 2, dtype=torch.uint8, device=dev)
+    scratch = None
+    if not k2.uses_shared_memory(lanes, dev):
+        scratch = torch.empty((n_rows * k2.row_bytes(lanes),),
+                              dtype=torch.uint8, device=dev)
+    err = k2._lib().wis_batch_launch_paths(
+        ptr(w), ptr(scores) if fused else None, ptr(transform) if fused else None,
+        t["idx"].data_ptr() if fused else None,
+        t["mask"].data_ptr() if fused else None, t["pred"].data_ptr(), n_rows,
+        lanes, int(scores.shape[0]) if fused else 0, sel2.data_ptr(),
+        tot2.data_ptr(), ptr(scratch), paths.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"wis_batch_launch_paths failed with CUDA error {err}")
+    torch.cuda.synchronize()
+    if not torch.equal(sel2, sel) or ulp_gap(torch, tot2, tot) != 0:
+        raise AssertionError("K2 with its paths output differs from the wrapper")
+    if int(paths.max().item()) > 1:
+        raise AssertionError("K2 left a row's backtrack path unwritten")
+    return paths.bool()
+
+
 def check_settle_kernel(np, torch, dev, k2, ref, scores):
     m_pad = int(scores.shape[0])
-    cases = [  # (W, L, form)
-        (64, 2048, "fused"), (64, 2048, "fused+transform"),
-        (64, 2048, "batched"), (64, 16384, "fused+transform"),
-        (64, 32768, "fused"),
-    ]
     branches = set()
-    main = None
-    for n, (n_rows, lanes, form) in enumerate(cases):
-        t = settle_inputs(np, torch, dev, n_rows, lanes, m_pad, SEED + 1 + n)
+    paths = {"doubling": 0, "walk": 0}
+    timed = {}
+    for n, (n_rows, lanes, form, opts) in enumerate(SETTLE_CASES):
+        t = settle_inputs(np, torch, dev, n_rows, lanes, m_pad, SEED + 1 + n,
+                          **opts)
         tr = t["transform"] if form == "fused+transform" else None
         w = ref.fused_weights(scores, t["idx"], t["mask"], tr)
         if form == "batched":
@@ -290,37 +412,74 @@ def check_settle_kernel(np, torch, dev, k2, ref, scores):
             sel, tot = k2.wis_batch_cuda(t["pred"], scores=scores, idx=t["idx"],
                                          mask=t["mask"], transform=tr)
         p_sel, p_tot = ref.wis_batch_reference(w, t["pred"])
+        _, p_take = ref.wis_forward_reference(w, t["pred"])
+        expected = ref.climbing_rows(p_take, t["pred"])
         torch.cuda.synchronize()
+        name = f"K2 W={n_rows} L={lanes} {form}" + (f" {opts}" if opts else "")
         if not torch.equal(sel, p_sel):
-            raise AssertionError(f"K2 {form} L={lanes}: selections differ")
+            raise AssertionError(f"{name}: selections differ")
         if ulp_gap(torch, tot, p_tot) != 0:
-            raise AssertionError(f"K2 {form} L={lanes}: totals not bit-equal")
+            raise AssertionError(f"{name}: totals not bit-equal")
         if not int(sel.sum().item()) or not torch.isfinite(tot).all():
-            raise AssertionError(f"K2 {form} L={lanes}: empty or non-finite")
+            raise AssertionError(f"{name}: empty or non-finite")
+        if "masked_row" in opts and (sel[opts["masked_row"]].any()
+                                     or tot[opts["masked_row"]] != 0):
+            raise AssertionError(f"{name}: the all-masked row selected a lane")
+        walked = backtrack_paths(
+            torch, dev, k2, n_rows, lanes, sel, tot, t=t, transform=tr,
+            w=w if form == "batched" else None,
+            scores=None if form == "batched" else scores)
+        if not torch.equal(walked, expected):
+            raise AssertionError(
+                f"{name}: the kernel walked rows "
+                f"{torch.nonzero(walked)[:, 0].tolist()}, the reference's "
+                f"climbing rows are {torch.nonzero(expected)[:, 0].tolist()}")
+        n_walk = int(walked.sum().item())
+        if "zero_rows" in opts and not 0 < n_walk <= opts["zero_rows"]:
+            raise AssertionError(f"{name}: {n_walk} rows walked, expected "
+                                 f"1..{opts['zero_rows']}")
+        paths["walk"] += n_walk
+        paths["doubling"] += n_rows - n_walk
         row = k2.row_bytes(lanes)
         branch = ("global scratch" if not k2.uses_shared_memory(lanes, dev)
                   else "shared > 48 KB" if row > 48 * 1024 else "shared")
         branches.add(branch)
-        log(f"K2 wis_batch W={n_rows} L={lanes} {form}: selections and totals "
-            f"equal, row {row} bytes in {branch}")
-        if (lanes, form) == (2048, "fused"):
-            main = (t, n_rows, lanes)
+        log(f"{name}: selections and totals equal, row {row} bytes in "
+            f"{branch}; backtrack read from the kernel: {n_rows - n_walk} rows "
+            f"doubling, {n_walk} bounded walk (the rows the reference predicts)")
+        if (n_rows, lanes, form) in ((64, 2048, "fused"), (8, 2048, "batched")) \
+                and not opts:
+            timed[form] = (t, w, n_rows, lanes)
     if branches != {"shared", "shared > 48 KB", "global scratch"}:
         raise AssertionError(f"K2 branches exercised: {sorted(branches)}")
+    if not all(paths.values()):
+        raise AssertionError(f"K2 backtrack paths exercised: {paths}")
 
-    t, n_rows, lanes = main
     lib = k2._lib()
-    sel = torch.empty((n_rows, lanes), dtype=torch.bool, device=dev)
-    tot = torch.empty((n_rows,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    times, graphs = {}, {}
+    for form, (t, w, n_rows, lanes) in timed.items():
+        sel = torch.empty((n_rows, lanes), dtype=torch.bool, device=dev)
+        tot = torch.empty((n_rows,), dtype=torch.float32, device=dev)
+        fused = form == "fused"
 
-    def raw():
-        lib.wis_batch_launch(None, scores.data_ptr(), None,
-                             t["idx"].data_ptr(), t["mask"].data_ptr(),
-                             t["pred"].data_ptr(), n_rows, lanes, m_pad,
-                             sel.data_ptr(), tot.data_ptr(), None, stream)
+        def raw(on=stream):
+            lib.wis_batch_launch(None if fused else w.data_ptr(),
+                                 scores.data_ptr() if fused else None, None,
+                                 t["idx"].data_ptr() if fused else None,
+                                 t["mask"].data_ptr() if fused else None,
+                                 t["pred"].data_ptr(), n_rows, lanes,
+                                 m_pad if fused else 0, sel.data_ptr(),
+                                 tot.data_ptr(), None, on)
 
-    ms = time_ms(torch, raw, reps=11, inner=10)
+        times[form] = time_ms(torch, raw, reps=11, inner=10)
+        graphs[form] = time_graph_ms(torch, raw, reps=11, inner=20)
+        log(f"K2 wis_batch W={n_rows} L={lanes} {form}: kernel "
+            f"{times[form]:.4f} ms launched one by one ({graphs[form]:.4f} ms "
+            "a launch replayed in a CUDA graph)")
+
+    t, _, n_rows, lanes = timed["fused"]
+    ms = times["fused"]
     plain_ms = time_ms(torch, lambda: ref.wis_batch_reference(
         ref.fused_weights(scores, t["idx"], t["mask"]), t["pred"]),
         reps=3, inner=1)
@@ -331,12 +490,19 @@ def check_settle_kernel(np, torch, dev, k2, ref, scores):
     bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
     log(f"K2 wis_batch W={n_rows} L={lanes} fused: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {bound_s * 1e3:.5f} ms ({n_bytes} bytes)")
+    if ms > K2_LIMIT_MS:
+        raise AssertionError(f"K2 takes {ms:.4f} ms at W={n_rows} L={lanes} "
+                             f"fused, over {K2_LIMIT_MS} ms")
     return {
         "max_abs_err": 0.0, "ulps": 0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
         else "operations",
         "shape": {"W": n_rows, "L": lanes, "M_pad": m_pad},
+        "graph_ms": graphs["fused"], "reclear_ms": times["batched"],
+        "reclear_graph_ms": graphs["batched"],
+        "reclear_shape": {"W": 8, "L": 2048},
+        "backtrack_rows": paths,
     }
 
 
@@ -1098,6 +1264,8 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
     out["device_busy"] = serving_profile(
         torch, dev, Model(cfg), params, prompts, max_new, pal["t"], card,
         max_seq=max_seq, attn_impl="pallas")
+    out["longest_prefill_ms"] = longest_prefill_ms(
+        torch, dev, Model(cfg), params, prompts[lens.index(max(lens))], max_seq)
     k4_prefill_gates(out, lens)
     del params, runs, pal, auto
     torch.cuda.empty_cache()
@@ -1156,12 +1324,35 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
 K4_PREFILL_SHARE = 0.05
 
 
+def longest_prefill_ms(torch, dev, model, params, prompt, max_seq: int,
+                       turns: int = 3) -> dict:
+    """Host-clock ms of one prefill of ``prompt`` through K4 ("pallas") and
+    through "auto", each timed ``turns`` times in turns (pallas, auto, auto,
+    pallas, ...) between device synchronises, as the engine calls it; the
+    median of each, and the samples.  Beside the serving runs' one prefill
+    a path, these are later calls of the same shape: their gap to the
+    serving run's is what the first call in the run costs."""
+    toks = torch.from_numpy(prompt).to(dev)[None]
+    samples = {"pallas": [], "auto": []}
+    for n in range(turns):
+        for impl in (("pallas", "auto") if n % 2 == 0 else ("auto", "pallas")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, toks, impl=impl, max_seq=max_seq)
+            torch.cuda.synchronize()
+            samples[impl].append((time.perf_counter() - t0) * 1e3)
+    return {"median": {k: statistics.median(v) for k, v in samples.items()},
+            "samples": samples}
+
+
 def k4_prefill_gates(out: dict, lens) -> None:
-    """The longest prompt's prefill through K4 must beat "auto"'s; K4 must
-    take under K4_PREFILL_SHARE of prefill device time where the profiler
+    """The longest prompt's prefill through K4 must beat "auto"'s, in the
+    serving runs and in the medians of ``longest_prefill_ms``; K4 must take
+    under K4_PREFILL_SHARE of prefill device time where the profiler
     measured it."""
     i = lens.index(max(lens))
     pal_ms, auto_ms = out["pallas"]["prefill_ms"][i], out["auto"]["prefill_ms"][i]
+    med = out["longest_prefill_ms"]["median"]
     share = None
     busy = out["device_busy"]
     if busy is not None and busy["busy_s"]["prefill"] > 0:
@@ -1170,10 +1361,18 @@ def k4_prefill_gates(out: dict, lens) -> None:
     share_txt = "not measured" if share is None else f"{100 * share:.2f}%"
     log(f"{lens[i]}-token prefill: {pal_ms:.2f} ms through K4, {auto_ms:.2f} ms "
         f"through auto; K4 share of prefill device time {share_txt}")
-    if not pal_ms < auto_ms:
-        raise AssertionError(f"the {lens[i]}-token prefill through K4 "
-                             f"({pal_ms:.2f} ms) is not faster than auto "
-                             f"({auto_ms:.2f} ms)")
+    log(f"{lens[i]}-token prefill again, median of "
+        f"{len(out['longest_prefill_ms']['samples']['pallas'])} in turns: "
+        f"{med['pallas']:.2f} ms through K4, {med['auto']:.2f} ms through auto "
+        f"(samples {out['longest_prefill_ms']['samples']}); the serving run's "
+        f"first prefill exceeds it by {pal_ms - med['pallas']:.2f} / "
+        f"{auto_ms - med['auto']:.2f} ms")
+    for what, p_ms, a_ms in (("", pal_ms, auto_ms),
+                             (" (medians)", med["pallas"], med["auto"])):
+        if not p_ms < a_ms:
+            raise AssertionError(f"the {lens[i]}-token prefill through K4 "
+                                 f"({p_ms:.2f} ms) is not faster than auto "
+                                 f"({a_ms:.2f} ms){what}")
     if share is not None and not share < K4_PREFILL_SHARE:
         raise AssertionError(f"K4 takes {100 * share:.2f}% of prefill device "
                              f"time, limit {100 * K4_PREFILL_SHARE}%")

@@ -1,4 +1,4 @@
-// Batched Eq. 4 variant scoring + FMP safety recheck, one thread per bid row.
+// Batched Eq. 4 variant scoring + FMP safety recheck, a block per 128 bid rows.
 //
 // Replaces the TPU kernel src/repro/kernels/jasda_score/kernel.py
 // (score_variants_pallas, body _score_kernel).
@@ -17,16 +17,29 @@
 // 9.6 MB, ~2.9 us at 3.35 TB/s.  The operations (~T transcendental
 // evaluations per row) are far below the f32 peak.
 //
-// Design: the TPU kernel reduces a (BM, T) tile in one vector sum; here each
-// thread owns one row and sums its T grid points sequentially in registers,
-// so the arithmetic order is fixed and equals the plain torch version in
-// jasda_score/ref.py.  Built with -fmad=false and written with __fmul_rn /
-// __fadd_rn so no multiply-add is contracted: scores are bit-equal to the
-// plain version on the card.  The three log_ndtr branches and their branch
-// points are the reference's.  A row's mu/sigma loads are strided by T
-// across a warp (uncoalesced per instruction, reused through L1): simple
-// and right first; a warp-per-row or shared-memory transpose is the
-// obvious next step.
+// Design: the TPU kernel reduces a (BM, T) tile in one vector sum.  Here a
+// block of 512 threads owns kRows = 128 rows and works in two steps inside
+// one launch:
+//  1. the log Phi terms: threads index (row, k) contiguously over the
+//     block's rows, so each warp's mu and sigma loads are coalesced; each
+//     thread issues the loads of its 8 terms before it evaluates them, and
+//     writes the terms into a shared-memory table of 128 x (kChunk + 1)
+//     floats (the odd row stride keeps step 2's reads free of bank
+//     conflicts).  T past kChunk = 32 runs in passes of 32 grid points;
+//  2. after __syncthreads(), one thread per row sums its terms from shared
+//     memory left to right, in the plain version's order (across passes
+//     too), and applies the safety check to the score it computed from
+//     the Fj/Fs dots during step 1 (their loads overlap step 1's).
+// Built with -fmad=false and written with __fmul_rn / __fadd_rn so no
+// multiply-add is contracted: scores are bit-equal to the plain version in
+// jasda_score/ref.py.  The three log_ndtr branches and their branch points
+// are the reference's.  At M = 32768 the grid is 256 blocks of 16 warps,
+// all resident on 132 SMs at once (2 blocks an SM at 61 registers).  What
+// bounds it once the loads are coalesced is instruction issue in step 1:
+// the division and the erfc and log1p / log of each term, with each warp
+// running every log_ndtr branch any of its lanes takes (sigma = 0 lanes
+// idle through them), well above the bytes' 2.9 us.
+// T, Fj and Fs stay runtime arguments: no rebuild per shape.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,17 +65,17 @@ __device__ __forceinline__ float log_ndtr_f(float z) {
     return __fsub_rn(quad, logf(__fadd_rn(__fmul_rn(-z, 2.5066282746310002f), 1e-30f)));
 }
 
-__global__ void score_kernel(
+// log Phi_t of one grid point, or its sigma = 0 limit
+__device__ __forceinline__ float log_phi_term(float m_k, float s_k, float c) {
+    if (s_k <= 0.0f) return (m_k <= c) ? 0.0f : -CUDART_INF_F;
+    return log_ndtr_f(__fdiv_rn(__fsub_rn(c, m_k), fmaxf(s_k, 1e-30f)));
+}
+
+// Eq. 4 of row r: lam h + (1 - lam) f from the Fj and Fs dots
+__device__ __forceinline__ float row_score(
     const float* __restrict__ fj, const float* __restrict__ fs,
     const float* __restrict__ alphas, const float* __restrict__ betas,
-    const float* __restrict__ mu, const float* __restrict__ sigma,
-    const float* __restrict__ lam, const float* __restrict__ cap,
-    const float* __restrict__ theta,
-    int m, int n_fj, int n_fs, int t,
-    float* __restrict__ score_out, uint8_t* __restrict__ elig_out) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= m) return;
-
+    const float* __restrict__ lam, int r, int n_fj, int n_fs) {
     const float* fj_r = fj + (size_t)r * n_fj;
     float h = __fmul_rn(fj_r[0], alphas[0]);
 #pragma unroll 4
@@ -72,25 +85,82 @@ __global__ void score_kernel(
 #pragma unroll 4
     for (int i = 1; i < n_fs; ++i) f = __fadd_rn(f, __fmul_rn(fs_r[i], betas[i]));
     const float l = lam[r];
-    const float score = __fadd_rn(__fmul_rn(l, clip01(h)),
-                                  __fmul_rn(__fsub_rn(1.0f, l), clip01(f)));
+    return __fadd_rn(__fmul_rn(l, clip01(h)), __fmul_rn(__fsub_rn(1.0f, l), clip01(f)));
+}
 
-    const float c = cap[r];
-    const float* mu_r = mu + (size_t)r * t;
-    const float* sg_r = sigma + (size_t)r * t;
+constexpr int kThreads = 512;
+constexpr int kRows = 128;   // rows a block
+constexpr int kChunk = 32;   // grid points staged a pass
+constexpr int kPerThread = kRows * kChunk / kThreads;  // terms a thread a pass
+
+__global__ void __launch_bounds__(kThreads) score_kernel(
+    const float* __restrict__ fj, const float* __restrict__ fs,
+    const float* __restrict__ alphas, const float* __restrict__ betas,
+    const float* __restrict__ mu, const float* __restrict__ sigma,
+    const float* __restrict__ lam, const float* __restrict__ cap,
+    const float* __restrict__ theta,
+    int m, int n_fj, int n_fs, int t,
+    float* __restrict__ score_out, uint8_t* __restrict__ elig_out) {
+    __shared__ float terms[kRows * (kChunk + 1)];
+    const int r0 = blockIdx.x * kRows;
+    const int rows = min(kRows, m - r0);
+    const bool owner = threadIdx.x < rows;  // runs step 2 for row r
+    const int r = r0 + threadIdx.x;
+
+    float score = 0.0f;
+    float th = 0.0f;
     float log_surv = 0.0f;
-    for (int k = 0; k < t; ++k) {
-        const float m_k = mu_r[k];
-        const float s_k = sg_r[k];
-        float lp;
-        if (s_k <= 0.0f) {
-            lp = (m_k <= c) ? 0.0f : -CUDART_INF_F;
-        } else {
-            lp = log_ndtr_f(__fdiv_rn(__fsub_rn(c, m_k), fmaxf(s_k, 1e-30f)));
+    for (int k0 = 0; k0 < t; k0 += kChunk) {
+        const int tc = min(kChunk, t - k0);
+        // 1. the terms of (row, k) = divmod(threadIdx.x + n kThreads, tc):
+        //    every load of the pass first, then the evaluations
+        const int n_terms = rows * tc;
+        const int step_r = kThreads / tc;
+        const int step_k = kThreads - step_r * tc;
+        int lr = threadIdx.x / tc;
+        int lk = threadIdx.x - lr * tc;
+        float mv[kPerThread], sv[kPerThread], cv[kPerThread];
+        int slot[kPerThread];
+#pragma unroll
+        for (int n = 0; n < kPerThread; ++n) {
+            slot[n] = -1;
+            if (threadIdx.x + n * kThreads < n_terms) {
+                const size_t g = static_cast<size_t>(r0 + lr) * t + k0 + lk;
+                mv[n] = mu[g];
+                sv[n] = sigma[g];
+                cv[n] = cap[r0 + lr];
+                slot[n] = lr * (kChunk + 1) + lk;
+            }
+            lk += step_k;
+            lr += step_r;
+            if (lk >= tc) {
+                lk -= tc;
+                ++lr;
+            }
         }
-        log_surv = (k == 0) ? lp : __fadd_rn(log_surv, lp);
+        if (k0 == 0 && owner) {  // the row's score, its loads beside those above
+            score = row_score(fj, fs, alphas, betas, lam, r, n_fj, n_fs);
+            th = theta[r];
+        }
+#pragma unroll
+        for (int n = 0; n < kPerThread; ++n) {
+            if (slot[n] >= 0) terms[slot[n]] = log_phi_term(mv[n], sv[n], cv[n]);
+        }
+        __syncthreads();
+        // 2a. this pass's terms into the row's sum, left to right
+        if (owner) {
+            const float* row_terms = terms + threadIdx.x * (kChunk + 1);
+#pragma unroll 8
+            for (int k = 0; k < tc; ++k) {
+                log_surv = (k0 + k == 0) ? row_terms[k] : __fadd_rn(log_surv, row_terms[k]);
+            }
+        }
+        __syncthreads();
     }
-    const bool elig = -expm1f(log_surv) <= theta[r];
+    if (!owner) return;
+
+    // 2b. the safety check of row r
+    const bool elig = -expm1f(log_surv) <= th;
     score_out[r] = elig ? score : 0.0f;
     elig_out[r] = elig ? 1 : 0;
 }
@@ -106,9 +176,8 @@ extern "C" int jasda_score_launch(
     const float* theta, int m, int n_fj, int n_fs, int t,
     float* score_out, uint8_t* elig_out, void* stream) {
     if (m <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (m + threads - 1) / threads;
-    score_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (m + kRows - 1) / kRows;
+    score_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         fj, fs, alphas, betas, mu, sigma, lam, cap, theta, m, n_fj, n_fs, t,
         score_out, elig_out);
     return static_cast<int>(cudaGetLastError());

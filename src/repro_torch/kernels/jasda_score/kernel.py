@@ -3,9 +3,11 @@
 Replaces ``repro/kernels/jasda_score/kernel.py::score_variants_pallas``
 (body ``_score_kernel``).  Source: ``kernels/csrc/jasda_score.cu`` (its
 header says what bounds it on an H100 and what the design does about it):
-one thread per bid row, the Fj/Fs dots unrolled, the T grid points summed
-sequentially in registers, and the reference's three ``log_ndtr``
-branches, compiled without FMA contraction.
+a block of 512 threads per 128 bid rows computes the rows' log Φ terms
+with coalesced loads into shared memory, then one thread per row sums its
+T terms left to right and applies the safety check to its Eq. 4 score;
+the reference's three ``log_ndtr`` branches, compiled without FMA
+contraction.
 
 λ, capacity and θ are per-row runtime columns, so one build serves every
 policy, capacity mix and safety bound; the kernel is not specialised per

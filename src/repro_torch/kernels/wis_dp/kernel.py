@@ -6,8 +6,10 @@ _fused_weights``.  Source: ``kernels/csrc/wis_batch.cu`` (its header says
 what bounds it on an H100 and what the design does about it): one block
 per window stages the row (gather × transform × mask folded into the
 load) in shared memory, or in a global scratch buffer once a row outgrows
-the block's shared memory, and one thread runs the sequential float32 DP
-and the backtrack.
+the block's shared memory; one thread runs the sequential float32 DP with
+its loads issued a few steps ahead, and the whole block backtracks by
+pointer doubling (rows with a taken zero-length interval keep the
+lane-by-lane walk).  ``ref.py`` models both steps for the tests.
 
 ``wis_dp_cuda`` (K3) replaces ``wis_dp_pallas`` (body ``_dp_kernel``): the
 forward DP of one window, (dp, take) for M end-sorted lanes, from the same
@@ -42,6 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "wis_batch_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "wis_batch_launch_paths": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                               _P, _P],
     "wis_batch_row_bytes": [_I],
     "wis_batch_smem_limit": [_I, ctypes.POINTER(ctypes.c_int)],
     "wis_dp_launch": [_P, _P, _I, _P, _P, _P, _P],

@@ -17,6 +17,13 @@ strict ``>`` rule a zero-weight lane is never taken.
 ``fused_weights`` is the gather of ``repro/kernels/wis_dp/ops.py::
 _fused_weights``: selection weights from the (bucket-padded) score vector,
 times an optional float32 transform, under the lane mask.
+
+``wis_forward_pipelined_reference`` and ``wis_backtrack_doubling_reference``
+model how the CUDA kernel computes the same results (csrc/wis_batch.cu,
+steps 2-4 of its header): the forward DP with its loads issued ``depth``
+steps ahead and a register ring of the last ``depth`` dp values, and the
+backtrack by pointer doubling with the bounded walk kept for rows whose
+predecessors climb.  Only tests and ``chip_smoke.py`` call them.
 """
 from __future__ import annotations
 
@@ -24,10 +31,12 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["wis_dp_reference", "wis_batch_reference", "fused_weights"]
+__all__ = ["wis_dp_reference", "wis_batch_reference", "fused_weights",
+           "wis_forward_reference", "climbing_rows",
+           "wis_forward_pipelined_reference", "wis_backtrack_doubling_reference"]
 
 
-def _forward(weights: torch.Tensor, pred: torch.Tensor):
+def wis_forward_reference(weights: torch.Tensor, pred: torch.Tensor):
     """(W, L) float32 weights + int predecessors → (dp (W, L+1), take (W, L))."""
     w_rows, lanes = weights.shape
     dp = torch.zeros((w_rows, lanes + 1), dtype=torch.float32,
@@ -44,7 +53,8 @@ def _forward(weights: torch.Tensor, pred: torch.Tensor):
 
 def wis_dp_reference(weights: torch.Tensor, pred: torch.Tensor):
     """(M,) weights, (M,) predecessor counts → (dp (M,), take (M,) bool)."""
-    dp, take = _forward(weights.to(torch.float32)[None, :], pred[None, :])
+    dp, take = wis_forward_reference(weights.to(torch.float32)[None, :],
+                                     pred[None, :])
     return dp[0, 1:], take[0]
 
 
@@ -62,7 +72,7 @@ def wis_batch_reference(weights: torch.Tensor,
        total (W,) float32 optimal totals).
     """
     w_rows, lanes = weights.shape
-    dp, take = _forward(weights.to(torch.float32), pred)
+    dp, take = wis_forward_reference(weights.to(torch.float32), pred)
     p = pred.to(torch.int64).clamp(0, lanes)
     sel = torch.zeros((w_rows, lanes), dtype=torch.bool, device=weights.device)
     rows = torch.arange(w_rows, device=weights.device)
@@ -85,3 +95,111 @@ def fused_weights(scores: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
         w = w * transform[safe].to(torch.float32)
     return torch.where(mask, w, torch.zeros((), dtype=torch.float32,
                                             device=w.device))
+
+
+def wis_forward_pipelined_reference(weights: torch.Tensor, pred: torch.Tensor,
+                                    depth: int):
+    """The kernel's forward DP: (dp (W, L+1), take (W, L)), as
+    :func:`wis_forward_reference`.
+
+    Step j's dp[pred] is loaded ``depth`` steps early, at step j - depth
+    right after that step stored dp[j - depth + 1], so it serves
+    d = j - pred >= depth - 1, and a pred past j reads the still-zero
+    entry.  d in [1, depth - 2] is picked one step ahead from the last dp
+    values (registers in the kernel).  A lane with d = 0 carries w+ =
+    fmax(w, 0) and its step is dp[j] + w+; any other step is fmax(w +
+    dp[pred], dp[j]) -- the reference's bits either way, since dp is never
+    NaN or -0.  take is read back from dp as dp[j+1] > dp[j].  Rows shorter
+    than 2 depth, and the last steps of longer ones, read dp from the table
+    directly, as the kernel's unpipelined tail.
+    """
+    w_rows, lanes = weights.shape
+    p = pred.to(torch.int64).clamp(0, lanes)
+    zero = torch.zeros((w_rows,), dtype=torch.float32)
+    pos = torch.arange(lanes)
+    w = weights.to(torch.float32)
+    w = torch.where(p == pos, torch.fmax(w, zero[:, None]), w)  # staged w+
+    dp = torch.zeros((w_rows, lanes + 1), dtype=torch.float32)
+
+    def load(step):  # dp[pred] of ``step`` as the table holds it now
+        return dp.gather(1, p[:, step][:, None])[:, 0]
+
+    span = 2 * depth
+    body = (lanes - span) // span * span if lanes >= span else 0
+    loaded = [load(u) for u in range(depth)] if body else []
+    back = [zero] * depth  # back[k] = dp[j - 1 - k]
+    cur = zero  # dp[j]
+    b = w[:, 0] + loaded[0] if body else zero  # step j's w + dp[pred]
+    for j in range(lanes):
+        if j < body:
+            nxt = torch.where(p[:, j] == j, cur + w[:, j], torch.fmax(b, cur))
+            dp[:, j + 1] = nxt
+            loaded[j % depth] = load(j + depth)  # after the store
+            # step j + 1's w + dp[pred] (the kernel forms it before this
+            # step's chain; its slot is another one unless depth = 1)
+            d1 = j + 1 - p[:, j + 1]
+            p1 = loaded[(j + 1) % depth]
+            for k in range(depth - 2, 1, -1):
+                p1 = torch.where(d1 == k, back[k - 2], p1)
+            if depth >= 3:
+                p1 = torch.where(d1 == 1, cur, p1)
+            back = [cur] + back[:-1]
+            cur, b = nxt, w[:, j + 1] + p1
+        else:
+            v = torch.where(p[:, j] > j, zero, load(j))
+            cur = torch.where(p[:, j] == j, cur + w[:, j],
+                              torch.fmax(w[:, j] + v, cur))
+            dp[:, j + 1] = cur
+    return dp, dp[:, 1:] > dp[:, :-1]
+
+
+def climbing_rows(take: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """(W,) bool: rows where some taken lane's predecessor lies past it.
+
+    Only a zero-length interval has pred[j] > j and can be taken (padded
+    lanes also have pred = L but weigh 0).  The kernel backtracks these
+    rows with the bounded lane-by-lane walk, every other row by pointer
+    doubling.
+    """
+    lanes = take.shape[1]
+    pos = torch.arange(lanes, device=take.device)
+    return (take & (pred.to(torch.int64).clamp(0, lanes) > pos)).any(dim=1)
+
+
+def wis_backtrack_doubling_reference(take: torch.Tensor,
+                                     pred: torch.Tensor) -> torch.Tensor:
+    """The kernel's backtrack: the selection mask (W, L) from take and pred.
+
+    Rows outside :func:`climbing_rows`: with
+    next(x) = take[x-1] ? pred[x-1] : x-1 and next(0) = 0, ceil(log2 L)
+    rounds of "mark J[m] for every marked m; J <- J o J" from mark = {L},
+    then sel[x-1] = mark[x] & take[x-1].  Other rows: the bounded L-step
+    cursor walk, marking each cursor position it visits.
+    """
+    w_rows, lanes = take.shape
+    p = pred.to(torch.int64).clamp(0, lanes)
+    pos = torch.arange(lanes)
+    climbing = climbing_rows(take, pred)
+    jump = torch.zeros((w_rows, lanes + 1), dtype=torch.int64)
+    jump[:, 1:] = torch.where(take, p, pos)
+    mark = torch.zeros((w_rows, lanes + 1), dtype=torch.int64)
+    mark[:, lanes] = 1
+    span = 1
+    while span < lanes:
+        hit = mark * (jump > 0)
+        mark = mark.scatter_reduce(1, jump, hit, reduce="amax")
+        jump = jump.gather(1, jump)
+        span *= 2
+    rows = torch.nonzero(climbing)[:, 0]
+    if len(rows):
+        walk = torch.zeros((len(rows), lanes + 1), dtype=torch.int64)
+        j = torch.full((len(rows),), lanes, dtype=torch.int64)
+        r = torch.arange(len(rows))
+        for _ in range(lanes):
+            active = j > 0
+            walk[r, j] |= active.to(torch.int64)
+            jm1 = (j - 1).clamp(min=0)
+            nxt = torch.where(take[rows, jm1], p[rows, jm1], j - 1)
+            j = torch.where(active, nxt, j)
+        mark[rows] = walk
+    return mark[:, 1:].bool() & take
