@@ -2,6 +2,7 @@
 """Run the PyTorch + CUDA port's main paths on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only wis   # phases 1, 2 (K1, K2) and 2e alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -46,10 +47,21 @@ Phases (any failure exits non-zero and prints no result):
    (1, 16, 4096, 256), 1.2 ms at (1, 40, 4096, 128), beat SDPA at S = 2500
    and 4096, and be 4x faster than the CUDA-core kernel on every bfloat16
    case;
-2e. the single-window WIS kernel (K3) against its plain version at M =
-   2048, 16384 (shared memory past 48 KB) and 65536 (global scratch): dp
-   bit-equal, take equal.  Then ``wis_clear`` on the card (its K3 launches
-   counted) must return ``core.wis.wis_select``'s selection and total;
+2e. the single-window WIS kernel (K3) against its plain version at M in
+   {1, 2, 3, 5, 7, 2048, 16384, 65536, 300000, 450000}: one block with
+   dp in its shared memory up to ~55k lanes, a thread-block cluster at
+   65536 (2 blocks) and 300000 (6), dp in global scratch at 450000
+   (``wis_dp_plan`` names the branch; each must run), one window of
+   zero-length intervals and -0, negative, ±inf and NaN weights, and
+   M = 16384 forced onto each branch through the C entry
+   ``wis_dp_launch_on``: dp bit-equal, take equal.  K3 is timed at
+   M = 2048, 16384 and 65536 and on each forced branch, with CUDA events
+   over raw launches and a CUDA-graph replay beside, and logged beside its
+   chain floor (derived: M x 4 cycles at the SM clock nvidia-smi reports,
+   not in the kernels line); at M = 2048 it must take at most 1.25x K2's
+   re-clear (8, 2048) of the same run.  Then ``wis_clear`` on the card
+   (its K3 launches counted) must return ``core.wis.wis_select``'s
+   selection and total;
 3. the auction path: ``simulate`` of a 16-GPU H100 cluster cut into 64 MIG
    slices (3g.40gb + 2g.20gb + 1g.10gb + 1g.10gb per GPU) against a
    backlog of 500 jobs, through the CUDA kernels pipelined and serial and
@@ -129,6 +141,16 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> tuple:
+    """(current, maximum) SM clock in MHz as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    cur, top = out.stdout.strip().splitlines()[0].split(",")
+    return int(cur), int(top)
 
 
 def time_ms(torch, fn, *, reps: int, inner: int) -> float:
@@ -762,65 +784,157 @@ def attention_gates(rows) -> None:
         "faster than the CUDA-core kernel")
 
 
-def dp_window(np, m: int, seed: int):
+#: K3 windows held bit-equal: around its pipeline depth, the reference's
+#: range (2048; 16384 past 48 KB of shared memory; 65536 in a cluster of
+#: 2), a cluster of 6 (preds reaching back two blocks) and one past what a
+#: cluster of 8 holds (global scratch)
+DP_SIZES = (1, 2, 3, 5, 7, 2048, 16384, 65536, 300_000, 450_000)
+#: K3 timed at these sizes, and each branch forced at DP_FORCED_M
+DP_TIMED = (2048, 16384, 65536)
+DP_FORCED_M = 16384
+#: K3 at M = 2048 against K2's re-clear (8, 2048) of the same run: the same
+#: forward, without the gather and the backtrack
+DP_K2_RATIO = 1.25
+#: cycles of the chain's loop-carried float add or max (its dependent-issue
+#: latency on the SM's float32 pipe), for the chain floor
+CHAIN_OP_CYCLES = 4
+
+
+def dp_window(np, m: int, seed: int, *, specials: bool = False):
     """One end-sorted window: weights in [0, 1), predecessors from the
-    host's searchsorted over sorted ends."""
+    host's searchsorted over sorted ends.  ``specials`` makes ~10% of the
+    intervals zero-length (pred past the lane) and puts -0, negative, ±inf
+    and NaN weights among the rest."""
     rng = np.random.default_rng(seed)
     w = rng.uniform(0, 1, m).astype(np.float32)
     ends = np.sort(rng.uniform(0, 100, m))
     starts = ends - rng.uniform(0.5, 20, m)
+    if specials:
+        starts = np.where(rng.random(m) < 0.1, ends, starts)
+        pick = rng.random(m)
+        for lo, v in ((0.0, -0.0), (0.02, -0.5), (0.06, np.inf),
+                      (0.062, -np.inf), (0.065, np.nan)):
+            w = np.where((pick >= lo) & (pick < lo + 0.02), np.float32(v), w)
+        w = w.astype(np.float32)
     pred = np.searchsorted(ends, starts, side="right").astype(np.int32)
     return w, pred
 
 
-def check_dp_kernel(np, torch, dev, k3, ref):
-    """K3 bit-equal to its plain version in shared memory above and below
-    48 KB and in global scratch; then the ``wis_clear`` entry point on the
-    card against the host's float64 ``wis_select``, its launches counted."""
+def check_dp_kernel(np, torch, dev, k3, ref, k2_row):
+    """K3 bit-equal to its plain version on every branch (one block, a
+    cluster, global scratch), timed at DP_TIMED and on each branch forced at
+    DP_FORCED_M, against K2's re-clear time; then the ``wis_clear`` entry
+    point on the card against the host's float64 ``wis_select``, its
+    launches counted."""
     from repro_torch.core.wis import wis_select
     from repro_torch.kernels import wis_clear
+    from repro_torch.kernels.common import check_launch
 
-    branches = set()
-    main = None
-    for n, m in enumerate((2048, 16384, 65536)):
+    lib = k3._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def forced(m, w, p, path):
+        """A raw launch of K3 through its C entry ``wis_dp_launch_on`` on
+        branch ``path`` (-1 as the wrapper chooses), not counted, with its
+        plan and output buffers."""
+        plan = k3.wis_dp_plan(m, path)
+        dp = torch.empty((m,), dtype=torch.float32, device=dev)
+        take = torch.empty((m,), dtype=torch.int32, device=dev)
+        scratch = None if plan[0] != 2 else torch.empty(
+            (m + 1,), dtype=torch.float32, device=dev)
+
+        def raw(on=stream):
+            return lib.wis_dp_launch_on(
+                path, w.data_ptr(), p.data_ptr(), m, dp.data_ptr(),
+                take.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                on)
+
+        return plan, raw, dp, take
+
+    def held(m, w, p, dp, take, name=""):
+        # the plain version on the host: the same float32 loop, faster
+        # there than one small launch a step on the card
+        p_dp, p_take = ref.wis_dp_reference(w.cpu(), p.cpu())
+        torch.cuda.synchronize()
+        if ulp_gap(torch, dp.cpu(), p_dp) != 0 or \
+                not torch.equal(take.cpu().bool(), p_take):
+            raise AssertionError(f"K3 M={m}{name}: dp not bit-equal or take differs")
+
+    paths = {}
+    inputs = {}
+    for n, m in enumerate(DP_SIZES):
         w_np, p_np = dp_window(np, m, SEED + 40 + n)
         w = torch.from_numpy(w_np).to(dev)
         p = torch.from_numpy(p_np).to(dev)
         dp, take = k3.wis_dp_cuda(w, p)
-        p_dp, p_take = ref.wis_dp_reference(w, p)
-        torch.cuda.synchronize()
-        if ulp_gap(torch, dp, p_dp) != 0 or not torch.equal(take, p_take):
-            raise AssertionError(f"K3 M={m}: dp not bit-equal or take differs")
+        held(m, w, p, dp, take)
         if not int(take.sum().item()) or not torch.isfinite(dp).all():
             raise AssertionError(f"K3 M={m}: nothing taken or non-finite dp")
-        staged = int(k3._lib().wis_dp_smem_bytes(m))
-        branch = ("global scratch" if not k3.dp_uses_shared_memory(m, dev)
-                  else "shared > 48 KB" if staged > 48 * 1024 else "shared")
-        branches.add(branch)
+        plan = k3.wis_dp_plan(m)
+        paths.setdefault(k3.DP_PATHS[plan[0]], []).append(m)
         log(f"K3 wis_dp M={m}: dp bit-equal, take equal ({int(take.sum())} "
-            f"taken), {staged} bytes staged -> {branch}")
-        if m == 2048:
-            main = (w, p, m)
-    if branches != {"shared", "shared > 48 KB", "global scratch"}:
-        raise AssertionError(f"K3 branches exercised: {sorted(branches)}")
+            f"taken) on the {k3.DP_PATHS[plan[0]]} branch ({plan[1]} block(s) "
+            f"of {plan[2]} lanes, {plan[3]} bytes of shared memory each)")
+        inputs[m] = (w, p)
+    if sorted(paths) != sorted(k3.DP_PATHS):
+        raise AssertionError(f"K3 branches exercised: {paths}")
+    w_np, p_np = dp_window(np, 2048, SEED + 49, specials=True)
+    w, p = torch.from_numpy(w_np).to(dev), torch.from_numpy(p_np).to(dev)
+    held(2048, w, p, *k3.wis_dp_cuda(w, p),
+         name=" (zero-length intervals, -0, ±inf, NaN)")
+    log("K3 wis_dp M=2048 with zero-length intervals and -0, negative, ±inf, "
+        "NaN weights: dp bit-equal, take equal")
+    w, p = inputs[2048]
+    held(2047, w[1:], p[1:], *k3.wis_dp_cuda(w[1:], p[1:]),
+         name=" (views 4 bytes past 16-byte alignment)")
+    log("K3 wis_dp M=2047 on views 4 bytes off 16-byte alignment (the "
+        "wrapper copies them for the bulk copies): dp bit-equal, take equal")
+    w, p = inputs[DP_FORCED_M]
+    for path in range(len(k3.DP_PATHS)):
+        _, raw, dp, take = forced(DP_FORCED_M, w, p, path)
+        check_launch(raw(), "wis_dp_launch_on")
+        held(DP_FORCED_M, w, p, dp, take, name=f" forced {k3.DP_PATHS[path]}")
+    log(f"K3 wis_dp M={DP_FORCED_M} forced onto each branch: dp bit-equal, "
+        "take equal")
 
-    w, p, m = main
-    lib = k3._lib()
-    dp = torch.empty((m,), dtype=torch.float32, device=dev)
-    take = torch.empty((m,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
+    clock_mhz = sm_clock_mhz()
+    log(f"SM clock (current, max) MHz: {clock_mhz}")
 
-    def raw():
-        lib.wis_dp_launch(w.data_ptr(), p.data_ptr(), m, dp.data_ptr(),
-                          take.data_ptr(), None, stream)
+    def timed(m, path):
+        w, p = inputs[m]
+        plan, raw, _, _ = forced(m, w, p, path)
+        ms = time_ms(torch, raw, reps=11, inner=10)
+        graph_ms = time_graph_ms(torch, raw, reps=11, inner=20)
+        # derived, not measured: kept in the log, out of the kernels line
+        floor_ms = m * CHAIN_OP_CYCLES / (clock_mhz[1] * 1e3)
+        log(f"K3 wis_dp M={m} {k3.DP_PATHS[plan[0]]} ({plan[1]} block(s)): "
+            f"kernel {ms:.4f} ms launched one by one ({graph_ms:.4f} ms a "
+            f"launch replayed in a CUDA graph), {ms / m * 1e6:.2f} ns a lane; "
+            f"chain floor {floor_ms:.4f} ms")
+        return {"ms": ms, "graph_ms": graph_ms, "branch": k3.DP_PATHS[plan[0]],
+                "blocks": plan[1]}
 
-    ms = time_ms(torch, raw, reps=11, inner=10)
+    times = {str(m): timed(m, -1) for m in DP_TIMED}
+    forced = {k3.DP_PATHS[path]: timed(DP_FORCED_M, path)
+              for path in range(len(k3.DP_PATHS))}
+
+    m = 2048
+    w, p = inputs[m]
+    ms = times[str(m)]["ms"]
     plain_ms = time_ms(torch, lambda: ref.wis_dp_reference(w, p), reps=3, inner=1)
     n_bytes = 4 * m * 4  # w and pred read, dp and take written
     n_ops = 2 * m  # one add and one compare a lane
     bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
     log(f"K3 wis_dp M={m}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-        f"{bound_s * 1e3:.6f} ms ({n_bytes} bytes)")
+        f"{bound_s * 1e3:.6f} ms ({n_bytes} bytes), chain floor (derived) "
+        f"{m * CHAIN_OP_CYCLES / (clock_mhz[1] * 1e3):.4f} ms "
+        f"({CHAIN_OP_CYCLES} cycles a lane at {clock_mhz[1]} MHz)")
+    limit = DP_K2_RATIO * k2_row["reclear_ms"]
+    if ms > limit:
+        raise AssertionError(f"K3 takes {ms:.4f} ms at M={m}, over {DP_K2_RATIO} "
+                             f"x K2's re-clear {k2_row['reclear_ms']:.4f} ms")
+    log(f"K3 at M={m} within {DP_K2_RATIO} x K2's re-clear (8, 2048): {ms:.4f} "
+        f"<= {limit:.4f} ms")
 
     # the entry point: one window's clear as a user calls it, DP on the card
     k3.LAUNCHES["wis_dp"] = 0
@@ -848,9 +962,13 @@ def check_dp_kernel(np, torch, dev, k3, ref):
         raise AssertionError(f"wis_clear launched K3 {launches} times, "
                              f"expected {len(sizes)}")
     return {"launches": launches, "max_abs_err": 0.0, "ulps": 0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "graph_ms": times[str(m)]["graph_ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
-            else "operations", "shape": {"M": m}}
+            else "operations",
+            "branch": times[str(m)]["branch"], "shape": {"M": m},
+            "times": times, "forced": {"M": DP_FORCED_M, **forced},
+            "paths": paths}
 
 
 # ---------------------------------------------------------------------------
@@ -1532,7 +1650,12 @@ def device_share(torch, core, dev, workload, sim) -> None:
         + ", ".join(f"{k} {v:.4f} s" for k, v in groups.items()))
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None
+    if argv:
+        if argv[:1] != ["--only"] or argv[1:] != ["wis"]:
+            return fail(f"usage: chip_smoke.py [--only wis], not {argv}")
+        only = "wis"
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
         return fail(f"the port's package is missing under {src}")
@@ -1572,9 +1695,16 @@ def main() -> int:
 
     scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
     k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)
+    if only == "wis":  # the WIS kernels alone: K1 feeds K2, then K3
+        k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref, k2_row)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [dict(name="wis_batch", **k2_row),
+                                      dict(name="wis_dp", **k3_row)]}),
+              flush=True)
+        return 0
     k5_row = check_scan_kernel(torch, dev, k5, k5_ref)
     k4_row = check_attention_kernel(np, torch, dev, k4, k4_ref)
-    k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref)
+    k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref, k2_row)
     del scores
     launches, run = main_path(torch, dev, k1, k2)
     served = serving_path(np, torch, dev, k5, card)
@@ -1617,7 +1747,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception as exc:  # report the failing phase, print no result
         import traceback
 

@@ -13,9 +13,16 @@ lane-by-lane walk).  ``ref.py`` models both steps for the tests.
 
 ``wis_dp_cuda`` (K3) replaces ``wis_dp_pallas`` (body ``_dp_kernel``): the
 forward DP of one window, (dp, take) for M end-sorted lanes, from the same
-source file.  One block stages w, pred and dp in shared memory, or keeps dp
-in a global scratch once 12 M + 4 bytes pass the block's opt-in limit, and
-one thread runs the DP.
+source file.  It is bound by its chain of M dependent steps, not by bytes
+or operations, and runs K2's pipelined forward on one thread.  Only dp
+stays resident in shared memory; the lanes stream through a small ring,
+bulk-copied by a producer thread and converted by a warp.  Past one
+block's ~55k lanes a cluster of up to 8 blocks splits dp across their
+shared memory and hands the chain on at each boundary; past that, dp goes
+to a global scratch.  ``wis_dp_plan`` names the branch, chosen from M and
+the device's limits before the launch and never after a failure; the C
+entry ``wis_dp_launch_on`` takes a branch to force.
+``ref.py::wis_dp_stream_reference`` models the kernel for the tests.
 
 Both launch on ``torch.cuda.current_stream()`` -- for ``wis_batch_cuda``
 the stream the scoring kernel ran on, so the fused first pass reads the
@@ -33,7 +40,8 @@ import torch
 from ..common import check_launch, check_tensor, load_kernel_library
 from .ref import fused_weights, wis_batch_reference, wis_dp_reference
 
-__all__ = ["wis_batch_cuda", "wis_dp_cuda", "LAUNCHES", "SHAPES"]
+__all__ = ["wis_batch_cuda", "wis_dp_cuda", "wis_dp_plan", "DP_PATHS",
+           "LAUNCHES", "SHAPES"]
 
 #: kernel launches (the wrapper adds one where it launches, nowhere else)
 LAUNCHES = {"wis_batch": 0, "wis_dp": 0}
@@ -48,8 +56,8 @@ _SIGNATURES = {
                                _P, _P],
     "wis_batch_row_bytes": [_I],
     "wis_batch_smem_limit": [_I, ctypes.POINTER(ctypes.c_int)],
-    "wis_dp_launch": [_P, _P, _I, _P, _P, _P, _P],
-    "wis_dp_smem_bytes": [_I],
+    "wis_dp_launch_on": [_I, _P, _P, _I, _P, _P, _P, _P],
+    "wis_dp_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 _SMEM_LIMIT: dict = {}
 
@@ -137,15 +145,31 @@ def wis_batch_cuda(pred: torch.Tensor, *, weights: Optional[torch.Tensor] = None
     return sel, totals
 
 
-def dp_uses_shared_memory(lanes: int, device: torch.device) -> bool:
-    """True when K3 stages a window of ``lanes`` lanes in shared memory."""
-    return int(_lib().wis_dp_smem_bytes(lanes)) <= smem_limit(device)
+#: K3's branches by the number ``wis_dp_plan`` gives them
+DP_PATHS = ("shared", "cluster", "global scratch")
 
 
-def wis_dp_cuda(weights: torch.Tensor, pred: torch.Tensor,
+def wis_dp_plan(lanes: int, path: int = -1) -> Tuple[int, int, int, int]:
+    """K3's launch plan for a window of ``lanes`` lanes on the current
+    device: (branch, blocks in the cluster, lanes a block owns, shared bytes
+    a block).  The branch is 0 for one block with dp in its shared memory,
+    1 for a cluster of blocks splitting dp across theirs, 2 for dp in a
+    global scratch buffer.  ``path`` -1 chooses as the launch does; 0, 1, 2
+    force that branch and raise if it cannot take ``lanes``."""
+    plan = (ctypes.c_int * 4)()
+    check_launch(_lib().wis_dp_plan(lanes, path, plan), "wis_dp_plan")
+    return tuple(int(v) for v in plan)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    # the kernel bulk-copies its operands in 16-byte pieces
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def wis_dp_cuda(weights: torch.Tensor, pred: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dp (M,) f32, take (M,) bool) for (M,) end-sorted f32 weights and
-    int32 predecessor counts."""
+    int32 predecessor counts, on the branch :func:`wis_dp_plan` chooses."""
     device = weights.device
     if device.type == "cpu":
         return wis_dp_reference(weights, pred)
@@ -160,11 +184,13 @@ def wis_dp_cuda(weights: torch.Tensor, pred: torch.Tensor,
     if lanes == 0:
         return dp, take.bool()
     scratch = None
-    if not dp_uses_shared_memory(lanes, device):
+    if wis_dp_plan(lanes)[0] == 2:  # the launch plans the same again
         scratch = torch.empty((lanes + 1,), dtype=torch.float32, device=device)
-    err = _lib().wis_dp_launch(
-        weights.data_ptr(), pred.data_ptr(), lanes, dp.data_ptr(),
-        take.data_ptr(), None if scratch is None else scratch.data_ptr(),
+    weights, pred = _aligned(weights), _aligned(pred)  # held past the launch
+    err = _lib().wis_dp_launch_on(
+        -1, weights.data_ptr(), pred.data_ptr(), lanes,
+        dp.data_ptr(), take.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     check_launch(err, "wis_dp")
     LAUNCHES["wis_dp"] += 1

@@ -23,7 +23,11 @@ model how the CUDA kernel computes the same results (csrc/wis_batch.cu,
 steps 2-4 of its header): the forward DP with its loads issued ``depth``
 steps ahead and a register ring of the last ``depth`` dp values, and the
 backtrack by pointer doubling with the bounded walk kept for rows whose
-predecessors climb.  Only tests and ``chip_smoke.py`` call them.
+predecessors climb.  ``wis_dp_stream_reference`` models the single-window
+kernel K3 (the section of csrc/wis_batch.cu after K2): its lanes streamed
+through a ring of stages, dp split across the blocks of a cluster, the
+chain handed on at each block boundary.  Only tests and ``chip_smoke.py``
+call them.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ import torch
 
 __all__ = ["wis_dp_reference", "wis_batch_reference", "fused_weights",
            "wis_forward_reference", "climbing_rows",
-           "wis_forward_pipelined_reference", "wis_backtrack_doubling_reference"]
+           "wis_forward_pipelined_reference", "wis_backtrack_doubling_reference",
+           "wis_dp_stream_reference"]
 
 
 def wis_forward_reference(weights: torch.Tensor, pred: torch.Tensor):
@@ -98,7 +103,9 @@ def fused_weights(scores: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
 
 
 def wis_forward_pipelined_reference(weights: torch.Tensor, pred: torch.Tensor,
-                                    depth: int):
+                                    depth: int, *,
+                                    dp0: Optional[torch.Tensor] = None,
+                                    lanes=None):
     """The kernel's forward DP: (dp (W, L+1), take (W, L)), as
     :func:`wis_forward_reference`.
 
@@ -112,25 +119,40 @@ def wis_forward_pipelined_reference(weights: torch.Tensor, pred: torch.Tensor,
     NaN or -0.  take is read back from dp as dp[j+1] > dp[j].  Rows shorter
     than 2 depth, and the last steps of longer ones, read dp from the table
     directly, as the kernel's unpipelined tail.
+
+    ``dp0`` (W,) is dp[0] (0 by default: K3's later blocks start from the
+    dp handed to them).  ``lanes``, if given, is told where the kernel
+    reads its lanes: ``lanes.window(j, 2 depth)`` where it reads lanes j ..
+    j + 2 depth - 1 (every lane before j read), ``lanes.at(j)`` where it
+    reads lane j alone (see :func:`wis_dp_stream_reference`).
     """
-    w_rows, lanes = weights.shape
-    p = pred.to(torch.int64).clamp(0, lanes)
+    w_rows, n = weights.shape
+    p = pred.to(torch.int64).clamp(0, n)
     zero = torch.zeros((w_rows,), dtype=torch.float32)
-    pos = torch.arange(lanes)
+    pos = torch.arange(n)
     w = weights.to(torch.float32)
     w = torch.where(p == pos, torch.fmax(w, zero[:, None]), w)  # staged w+
-    dp = torch.zeros((w_rows, lanes + 1), dtype=torch.float32)
+    dp = torch.zeros((w_rows, n + 1), dtype=torch.float32)
+    if dp0 is not None:
+        dp[:, 0] = dp0
 
     def load(step):  # dp[pred] of ``step`` as the table holds it now
         return dp.gather(1, p[:, step][:, None])[:, 0]
 
     span = 2 * depth
-    body = (lanes - span) // span * span if lanes >= span else 0
+    body = (n - span) // span * span if n >= span else 0
+    if body and lanes is not None:
+        lanes.window(0, span)
     loaded = [load(u) for u in range(depth)] if body else []
     back = [zero] * depth  # back[k] = dp[j - 1 - k]
-    cur = zero  # dp[j]
+    cur = dp[:, 0].clone()  # dp[j]
     b = w[:, 0] + loaded[0] if body else zero  # step j's w + dp[pred]
-    for j in range(lanes):
+    for j in range(n):
+        if lanes is not None:
+            if j >= body:
+                lanes.at(j)
+            elif j % span == 0:
+                lanes.window(j + span, span)
         if j < body:
             nxt = torch.where(p[:, j] == j, cur + w[:, j], torch.fmax(b, cur))
             dp[:, j + 1] = nxt
@@ -151,6 +173,110 @@ def wis_forward_pipelined_reference(weights: torch.Tensor, pred: torch.Tensor,
                               torch.fmax(w[:, j] + v, cur))
             dp[:, j + 1] = cur
     return dp, dp[:, 1:] > dp[:, :-1]
+
+
+class _Ring:
+    """K3's ring of ``stages`` slots of ``stage_lanes`` lanes for one block's
+    ``n`` lanes, as the kernel runs it: stage t lands in slot t % stages
+    once the chain has freed stage t - stages (the producer issues the
+    first ``stages`` at once); the chain frees the stage before one it
+    enters.  Raises AssertionError where the kernel would read a lane that
+    has not landed or was freed, read a window across two stages, or wait
+    on a stage the producer cannot issue (a deadlock)."""
+
+    def __init__(self, n: int, stage_lanes: int, stages: int):
+        self.size, self.stages = stage_lanes, stages
+        self.n_stages = -(-n // stage_lanes)
+        self.slot = [-1] * stages  # the stage each slot holds
+        self.issued = 0
+        self.freed = 0  # stages [0, freed) handed back to the producer
+        self.entered = -1  # the stage the chain reads from
+        self._issue()
+
+    def _issue(self):
+        while self.issued < min(self.n_stages, self.freed + self.stages):
+            self.slot[self.issued % self.stages] = self.issued
+            self.issued += 1
+
+    def _enter(self, t: int, free: bool):
+        if free and t > 0:
+            assert self.freed == t - 1, "the chain frees stages in order"
+            self.freed = t
+            self._issue()
+        assert t < self.issued, f"ring deadlock: the chain waits on stage {t}"
+        self.entered = t
+
+    def _read(self, j: int):
+        t = j // self.size
+        assert t == self.entered and t >= self.freed, \
+            f"lane {j} read outside the stage the chain holds"
+        assert self.slot[t % self.stages] == t, f"lane {j}: slot overwritten"
+
+    def window(self, j: int, count: int):
+        t = j // self.size
+        assert (j + count - 1) // self.size == t, "a window spans two stages"
+        if t != self.entered:
+            self._enter(t, free=True)
+        for x in range(j, j + count):
+            self._read(x)
+
+    def at(self, j: int):
+        t = j // self.size
+        if t != self.entered:
+            self._enter(t, free=False)
+        self._read(j)
+
+
+def wis_dp_stream_reference(weights: torch.Tensor, pred: torch.Tensor,
+                            depth: int, *, lanes_per_rank: Optional[int] = None,
+                            stage_lanes: int = 384, stages: int = 4,
+                            stats: Optional[dict] = None):
+    """K3's single-window forward DP as the kernel computes it: (dp (M,),
+    take (M,) bool), as :func:`wis_dp_reference`.
+
+    The window is split into blocks of ``lanes_per_rank`` lanes (all M in
+    one block by default), block r owning lanes [r S, r S + S) and dp[r S ..
+    r S + S] in its own table.  Block by block, as the chain is handed on:
+    the converter clamps pred to [0, M] and a pred past j to j + 1 (a dp
+    entry still zero), and for a pred in an earlier block folds that
+    block's final dp[pred] into w (the plain version's float32 add) and
+    points the lane at dp[j + 1]; the chain runs
+    :func:`wis_forward_pipelined_reference` on the block's own table from
+    the dp handed to it, its lanes read through :class:`_Ring`.  take is
+    dp[j+1] > dp[j], as the kernel writes it.  ``stats``, if given,
+    receives the blocks, the preds folded and the stages streamed.
+    """
+    m = int(weights.shape[0])
+    span = lanes_per_rank or max(m, 1)
+    assert stage_lanes % (2 * depth) == 0 and stage_lanes >= 4 * depth
+    w_all = weights.to(torch.float32)
+    p_all = pred.to(torch.int64).clamp(0, m)
+    parts = []  # parts[q]: block q's dp[q S .. q S + n_q]
+    folded = streamed = 0
+    for base in range(0, m, span):
+        n = min(span, m - base)
+        j = torch.arange(base, base + n)
+        p = torch.minimum(p_all[base:base + n], j + 1)
+        w = w_all[base:base + n].clone()
+        remote = p < base
+        if remote.any():
+            q = p[remote] // span  # the block that owns dp[p], and its slot
+            w[remote] = w[remote] + torch.stack(parts)[q, p[remote] - q * span]
+            p = torch.where(remote, j + 1, p)
+            folded += int(remote.sum())
+        ring = _Ring(n, stage_lanes, stages)
+        handed = parts[-1][-1:] if parts else None  # the hand-off
+        dp, _ = wis_forward_pipelined_reference(
+            w[None], (p - base)[None], depth, dp0=handed, lanes=ring)
+        parts.append(dp[0])
+        streamed += ring.n_stages
+    if stats is not None:
+        stats.update(blocks=len(parts), folded=folded, stages=streamed)
+    if not parts:
+        return (torch.zeros((0,), dtype=torch.float32),
+                torch.zeros((0,), dtype=torch.bool))
+    dp = torch.cat([parts[0]] + [part[1:] for part in parts[1:]])
+    return dp[1:], dp[1:] > dp[:-1]
 
 
 def climbing_rows(take: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
