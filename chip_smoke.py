@@ -2,7 +2,8 @@
 """Run the PyTorch + CUDA port's main paths on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only wis   # phases 1, 2 (K1, K2) and 2e alone
+    python3 chip_smoke.py --only wis       # phases 1, 2 (K1, K2) and 2e alone
+    python3 chip_smoke.py --only service   # phases 1 and 6 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -97,7 +98,27 @@ Phases (any failure exits non-zero and prints no result):
    repro_torch.launch.serve --arch recurrentgemma_9b --attn-impl pallas``
    serves its 8 default requests on the card.
    The reduced config (float32) on the card through K4 and K5 must match
-   the host within 1e-4 over a prefill and 8 decode steps.
+   the host within 1e-4 over a prefill and 8 decode steps;
+6. the streaming auction service (``repro_torch.service.JasdaService``)
+   through K1 and K2 (``score_impl = wis_impl = "cuda"``): 6a soaks phase
+   3's 64-slice cluster under Poisson arrivals (rate 8, work 8-40, 30%
+   QoS jobs with deadline slack 2-6, AcceptAll) to t = 200, cuda pipelined
+   (launch counters reset just before, read just after; K1's M buckets
+   and K2's (W, L) shapes printed), cuda serial and host float64 numpy:
+   award logs and ``ServiceStats`` must be identical; 6b runs the same
+   soak with a ``CheckpointStore`` (a snapshot every 50 rounds) to
+   t = 100, restores the service from the store and runs it on to 200:
+   it must equal 6a; 6c repartitions a 64-chip pod of eight 8-chip 80 GB
+   slices (``FragmentationAware``, the migration ladder) under the same
+   arrivals to t = 120, cuda pipelined against the plain torch versions on
+   the host, serial: identical, with at least one split; host float64
+   numpy must agree with them up to t = 98, where two bids' float32
+   scores tie and their float64 scores do not (the reference's own f32
+   and f64 backends part there too); 6d replays phase 3's simulation
+   through a scheduler crash at t = 10.5, restored from the store: its
+   commit log and summary must equal phase 3's; 6e runs ``repro_torch.launch.serve_auction
+   --json --t-end 60`` on cuda and on cpu: both exit 0 with the same
+   line.  No soak may mark a backend failed.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; runs
@@ -981,17 +1002,22 @@ def cluster(SliceSpec):
             for g in range(16) for name, cap, units in MIG_PROFILES]
 
 
-def run_sim(core, impl, *, pipeline, device, workload, sim):
+def run_sim(core, impl, *, pipeline, device, workload, sim, **sim_kw):
+    """One ``simulate`` run; ``sim_kw`` (faults, checkpoint, ...) passes
+    through.  Its commit log is read from the scheduler that finished the
+    run: the one a ``scheduler_crash`` restored from the store."""
     from repro_torch.core.scheduler import SchedulerConfig
 
     cfg = SchedulerConfig.from_policy(
         core.Policy(per_agent_theta=True), score_impl=impl, wis_impl=impl,
         device=device)
-    sched = core.JasdaScheduler(workload["slices"](core.SliceSpec), cfg)
     t0 = time.perf_counter()
-    res = core.simulate(sched, core.make_workload(**workload["jobs"]),
-                        core.SimConfig(pipeline=pipeline, **sim))
+    res = core.simulate(
+        core.JasdaScheduler(workload["slices"](core.SliceSpec), cfg),
+        core.make_workload(**workload["jobs"]),
+        core.SimConfig(pipeline=pipeline, **sim), **sim_kw)
     wall = time.perf_counter() - t0
+    sched = res.scheduler
     commits = [(c.variant_id, c.slice_id, c.t_start, c.score)
                for c in sched.commit_log]
     rounds = [r for r in sched.log if r.n_windows]
@@ -1004,14 +1030,18 @@ def run_sim(core, impl, *, pipeline, device, workload, sim):
             "max_windows": max((r.n_windows for r in rounds), default=0)}
 
 
+#: phase 3's workload: 500 jobs on the 64-slice cluster, 21 rounds
+SIM_WORKLOAD = {"slices": cluster,
+                "jobs": dict(n_jobs=500, seed=0, arrival_rate=100.0,
+                             mem_range_gb=(2.0, 36.0))}
+SIM_CONFIG = dict(t_end=20.0, seed=1)
+
+
 def main_path(torch, dev, k1, k2):
     import repro_torch.core as core
     from repro_torch.kernels.jasda_score.ops import bucket_m
 
-    workload = {"slices": cluster,
-                "jobs": dict(n_jobs=500, seed=0, arrival_rate=100.0,
-                             mem_range_gb=(2.0, 36.0))}
-    sim = dict(t_end=20.0, seed=1)
+    workload, sim = SIM_WORKLOAD, SIM_CONFIG
     k1.LAUNCHES["jasda_score"] = 0
     k2.LAUNCHES["wis_batch"] = 0
     k1.SHAPES.clear()
@@ -1650,12 +1680,270 @@ def device_share(torch, core, dev, workload, sim) -> None:
         + ", ".join(f"{k} {v:.4f} s" for k, v in groups.items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the streaming auction service
+# ---------------------------------------------------------------------------
+
+#: the open-loop arrivals of every phase-6 soak (rate 8 on the 64-slice
+#: cluster: pools of a few hundred to a few thousand bids a round)
+SERVICE_ARRIVALS = dict(rate=8.0, seed=0, work_range=(8.0, 40.0),
+                        qos_fraction=0.3, deadline_slack=(2.0, 6.0))
+SERVICE_T_END = 200.0
+SERVICE_CRASH_T = 100.0
+SERVICE_CHECKPOINT_EVERY = 50
+POD_T_END = 120.0
+#: the first 6c round whose float32 scores tie where host float64 ones do
+#: not (two bids 5.3e-9 apart in float64, equal in float32): the f32
+#: backends and host numpy pick different winners from here on
+POD_F64_TIE_T = 98.0
+SIM_CRASH_T = 10.5
+LAUNCHER_ARGV = ["--json", "--t-end", "60"]
+
+
+def pod(SliceSpec):
+    """A 64-chip pod of eight 8-chip 80 GB slices (repartitioned in 6c)."""
+    return [SliceSpec(f"s{i}", 80 * GB, n_chips=8) for i in range(8)]
+
+
+def run_service(impl, *, device, pipeline, slices=cluster, t_end=None,
+                checkpoint=None, **svc_cfg):
+    """One soak of ``SERVICE_ARRIVALS`` with AcceptAll, configured to
+    ``SERVICE_T_END`` and run to ``t_end`` (the same when None); the service
+    object, its stats and its wall."""
+    from repro_torch import core, service
+    from repro_torch.core.scheduler import SchedulerConfig
+
+    sched = core.JasdaScheduler(slices(core.SliceSpec), SchedulerConfig(
+        score_impl=impl, wis_impl=impl, device=device))
+    arr = dict(SERVICE_ARRIVALS)
+    svc = service.JasdaService(
+        sched, service.PoissonArrivals(arr.pop("rate"), **arr),
+        config=service.ServiceConfig(t_end=SERVICE_T_END, seed=0,
+                                     max_bucket_m=32768, pipeline=pipeline,
+                                     **svc_cfg),
+        admission=service.AcceptAll())
+    t0 = time.perf_counter()
+    stats = svc.run(t_end, checkpoint=checkpoint,
+                    checkpoint_every=SERVICE_CHECKPOINT_EVERY)
+    return svc, stats, time.perf_counter() - t0
+
+
+def soak_digest(svc, stats, wall: float) -> dict:
+    """What two soaks must agree on (award log, stats as JSON so NaN
+    compares), and what the phase reports."""
+    import dataclasses
+
+    failed = svc.scheduler.backend_health.failed_backends()
+    if failed:
+        raise AssertionError(f"a service soak marked backends failed: {failed}")
+    rounds = [r for r in svc.scheduler.log if r.n_windows]
+    return {"awards": [(r.round, r.t, r.variant_id, r.job_id, r.slice_id)
+                       for r in svc.award_log],
+            "stats": json.dumps(dataclasses.asdict(stats)),
+            "p50": stats.announce_award_p50, "p99": stats.announce_award_p99,
+            "rounds": stats.n_rounds, "wall_s": wall,
+            "big_rounds": sum(r.n_bids >= 256 for r in rounds),
+            "max_bids": max((r.n_bids for r in rounds), default=0),
+            "windows": (min((r.n_windows for r in rounds), default=0),
+                        max((r.n_windows for r in rounds), default=0))}
+
+
+def same_soak(name: str, a: dict, b: dict) -> None:
+    if a["awards"] != b["awards"]:
+        i = next((i for i, (x, y) in enumerate(zip(a["awards"], b["awards"]))
+                  if x != y), min(len(a["awards"]), len(b["awards"])))
+        raise AssertionError(
+            f"{name}: award logs differ from row {i} of "
+            f"{len(a['awards'])} / {len(b['awards'])}: "
+            f"{a['awards'][i:i + 3]} / {b['awards'][i:i + 3]}")
+    if a["stats"] != b["stats"]:
+        raise AssertionError(f"{name}: stats differ: {a['stats']} / {b['stats']}")
+
+
+def counted(k1, k2, fn):
+    """Run ``fn`` with K1's and K2's counts set to 0 just before; return its
+    result and the launches and shapes counted in it."""
+    k1.LAUNCHES["jasda_score"] = 0
+    k2.LAUNCHES["wis_batch"] = 0
+    k1.SHAPES.clear()
+    k2.SHAPES.clear()
+    out = fn()
+    return out, {"jasda_score": k1.LAUNCHES["jasda_score"],
+                 "wis_batch": k2.LAUNCHES["wis_batch"]}, {
+        "jasda_score": dict(k1.SHAPES), "wis_batch": dict(k2.SHAPES)}
+
+
+def service_path(dev, k1, k2, sim_run=None) -> dict:
+    """Phase 6: the streaming service through K1 and K2 (6a soak, 6b crash
+    and resume, 6c repartitioning and migration, 6d the simulator's crash
+    replay, 6e the launcher).  ``sim_run`` is phase 3's cuda pipelined run,
+    run here when phase 3 was not."""
+    import contextlib
+    import io
+    import tempfile
+
+    import repro_torch.core as core
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.launch import serve_auction
+    from repro_torch.service import JasdaService
+
+    t_phase = time.perf_counter()
+    out = {}
+    # 6a: the soak, cuda pipelined (counted), cuda serial, host numpy
+    (svc, stats, wall), launches, shapes = counted(k1, k2, lambda: run_service(
+        "cuda", device=dev, pipeline=True))
+    if not all(launches.values()):
+        raise AssertionError(f"6a: a kernel of the service path never ran: "
+                             f"{launches}")
+    pipe = soak_digest(svc, stats, wall)
+    del svc
+    (serial_run, serial_launches, _) = counted(k1, k2, lambda: run_service(
+        "cuda", device=dev, pipeline=False))
+    serial = soak_digest(*serial_run)
+    host = soak_digest(*run_service("numpy", device="cpu", pipeline=True))
+    same_soak("6a cuda serial", serial, pipe)
+    same_soak("6a host numpy", host, pipe)
+    if not pipe["awards"]:
+        raise AssertionError("6a: the soak awarded nothing")
+    log(f"6a service soak, 64 slices, Poisson rate {SERVICE_ARRIVALS['rate']}, "
+        f"t_end {SERVICE_T_END}: {pipe['rounds']} rounds, "
+        f"{pipe['big_rounds']} at >= 256 bids, max {pipe['max_bids']} bids, "
+        f"{len(pipe['awards'])} awards; announce->award p50 {pipe['p50']} "
+        f"p99 {pipe['p99']}")
+    log(f"  walls: cuda pipelined {pipe['wall_s']:.2f} s, cuda serial "
+        f"{serial['wall_s']:.2f} s, host numpy {host['wall_s']:.2f} s; "
+        f"launches pipelined {launches}, serial {serial_launches}")
+    log(f"  K1 shapes (M, Fj, Fs, T): {shapes['jasda_score']}")
+    log(f"  K2 shapes (W, L, fused, transformed): {shapes['wis_batch']}")
+    log("  award logs and stats identical across cuda pipelined, cuda serial "
+        "and host numpy")
+    out["6a"] = {"launches": launches, "serial_launches": serial_launches,
+                 **{k: pipe[k] for k in ("rounds", "big_rounds", "max_bids",
+                                         "p50", "p99")},
+                 "wall_s": {"cuda_pipelined": pipe["wall_s"],
+                            "cuda_serial": serial["wall_s"],
+                            "host_numpy": host["wall_s"]}}
+
+    # 6b: crash at t = SERVICE_CRASH_T, restore from the store, run on
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp, keep=3)
+
+        def crash_and_resume():
+            t0 = time.perf_counter()
+            run_service("cuda", device=dev, pipeline=True,
+                        t_end=SERVICE_CRASH_T, checkpoint=store)
+            resumed = JasdaService.restore(store)
+            step = resumed.round_count
+            stats = resumed.run()
+            return resumed, stats, time.perf_counter() - t0, step
+
+        (resumed, stats, wall, step), b_launches, _ = counted(
+            k1, k2, crash_and_resume)
+    resumed_digest = soak_digest(resumed, stats, wall)
+    same_soak("6b resumed soak", resumed_digest, pipe)
+    log(f"6b crash at t = {SERVICE_CRASH_T}, restored at round {step} "
+        f"(checkpoint every {SERVICE_CHECKPOINT_EVERY}), run on to "
+        f"{SERVICE_T_END}: award log and stats equal 6a's; {wall:.2f} s "
+        f"wall, launches {b_launches}")
+    out["6b"] = {"restored_round": step, "wall_s": wall, "launches": b_launches}
+
+    # 6c: repartitioning and migration on the 64-chip pod.  The f32
+    # backends' twin on the host is the plain torch versions (bit-equal to
+    # K1 and K2); host float64 numpy parts from them at the first round
+    # whose f32 scores tie where the f64 ones do not (ROADMAP.md §3)
+    def pod_run(impl, device, pipeline=True):
+        svc, stats, wall = run_service(
+            impl, device=device, pipeline=pipeline, slices=pod,
+            t_end=POD_T_END, repartition=core.FragmentationAware(),
+            migration=True)
+        return soak_digest(svc, stats, wall), svc.repartition.stats()
+
+    (pod_card, coord), c_launches, c_shapes = counted(
+        k1, k2, lambda: pod_run("cuda", dev))
+    pod_torch, torch_coord = pod_run("torch", "cpu", pipeline=False)
+    same_soak("6c host torch serial", pod_torch, pod_card)
+    if coord != torch_coord:
+        raise AssertionError(f"6c: coordinators differ: {coord} / {torch_coord}")
+    if not coord["n_splits"] > 0:
+        raise AssertionError(f"6c made no split: {coord}")
+    pod_host, _ = pod_run("numpy", "cpu")
+    parted = next((i for i, (a, b) in enumerate(zip(pod_host["awards"],
+                                                    pod_card["awards"]))
+                   if a != b), None)
+    if parted is not None and pod_card["awards"][parted][1] < POD_F64_TIE_T:
+        raise AssertionError(
+            f"6c: host numpy parts from the card at award row {parted}, "
+            f"before the f32 tie at t = {POD_F64_TIE_T}: "
+            f"{pod_host['awards'][parted]} / {pod_card['awards'][parted]}")
+    parted_txt = ("never" if parted is None else
+                  f"at award row {parted} (t = {pod_card['awards'][parted][1]}"
+                  f": {pod_host['awards'][parted][2]} on the host, "
+                  f"{pod_card['awards'][parted][2]} on the card)")
+    log(f"6c repartitioning pod (8 x 8-chip 80 GB, FragmentationAware, "
+        f"migration), t_end {POD_T_END}: {coord['n_splits']} splits, "
+        f"{coord['n_merges']} merges, {coord['n_forced']} forced drains, "
+        f"windows a round {pod_card['windows'][0]}-{pod_card['windows'][1]}, "
+        f"max {pod_card['max_bids']} bids; cuda pipelined identical to the "
+        f"plain versions on the host (serial); host float64 numpy parts "
+        f"{parted_txt}; walls cuda {pod_card['wall_s']:.2f} s, host torch "
+        f"{pod_torch['wall_s']:.2f} s, host numpy {pod_host['wall_s']:.2f} s; "
+        f"launches {c_launches}")
+    log(f"  K1 shapes: {c_shapes['jasda_score']}")
+    log(f"  K2 shapes: {c_shapes['wis_batch']}")
+    out["6c"] = {"coordinator": coord, "windows": pod_card["windows"],
+                 "max_bids": pod_card["max_bids"], "launches": c_launches,
+                 "numpy_parts_at_row": parted,
+                 "wall_s": {"cuda_pipelined": pod_card["wall_s"],
+                            "host_torch_serial": pod_torch["wall_s"],
+                            "host_numpy": pod_host["wall_s"]}}
+
+    # 6d: phase 3's simulation with a scheduler crash mid-run
+    if sim_run is None:
+        sim_run = run_sim(core, "cuda", pipeline=True, device=dev,
+                          workload=SIM_WORKLOAD, sim=SIM_CONFIG)
+    plan = core.FaultPlan(seed=0, events=(
+        core.FaultEvent(t=SIM_CRASH_T, kind="scheduler_crash"),))
+    with tempfile.TemporaryDirectory() as tmp:
+        crashed, d_launches, _ = counted(k1, k2, lambda: run_sim(
+            core, "cuda", pipeline=True, device=dev, workload=SIM_WORKLOAD,
+            sim=SIM_CONFIG, faults=plan, checkpoint=CheckpointStore(tmp),
+            checkpoint_every=5))
+    if (crashed["commits"] != sim_run["commits"]
+            or crashed["summary"] != sim_run["summary"]):
+        raise AssertionError("6d: the crash replay differs from phase 3's run")
+    log(f"6d simulate with a scheduler crash at t = {SIM_CRASH_T}: "
+        f"{len(crashed['commits'])} commits and the summary equal phase 3's; "
+        f"{crashed['wall_s']:.2f} s wall, launches {d_launches}")
+    out["6d"] = {"wall_s": crashed["wall_s"], "launches": d_launches}
+
+    # 6e: the launcher, on the card and on the host
+    lines = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_auction.main(LAUNCHER_ARGV + ["--device", device])
+        if rc != 0:
+            raise AssertionError(f"6e: serve_auction --device {device} "
+                                 f"exited {rc}")
+        lines[device] = (buf.getvalue().strip(), time.perf_counter() - t0)
+    if lines["cuda"][0] != lines["cpu"][0]:
+        raise AssertionError(f"6e: the launcher's lines differ: {lines}")
+    log(f"6e serve_auction {' '.join(LAUNCHER_ARGV)}: the same line on "
+        f"--device cuda ({lines['cuda'][1]:.2f} s) and cpu "
+        f"({lines['cpu'][1]:.2f} s): {lines['cuda'][0]}")
+    out["6e"] = {"wall_s": {d: w for d, (_, w) in lines.items()}}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 6 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     only = None
     if argv:
-        if argv[:1] != ["--only"] or argv[1:] != ["wis"]:
-            return fail(f"usage: chip_smoke.py [--only wis], not {argv}")
-        only = "wis"
+        if argv[:1] != ["--only"] or argv[1:] not in (["wis"], ["service"]):
+            return fail(f"usage: chip_smoke.py [--only wis|service], not {argv}")
+        only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
         return fail(f"the port's package is missing under {src}")
@@ -1693,6 +1981,11 @@ def main(argv) -> int:
         for fn, regs in ptxas_report(report):
             log(f"  ptxas {name} {fn}: {regs}")
 
+    if only == "service":  # the build, then the streaming service alone
+        service = service_path(dev, k1, k2)
+        print(card, flush=True)
+        print(json.dumps({"service": service}), flush=True)
+        return 0
     scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
     k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)
     if only == "wis":  # the WIS kernels alone: K1 feeds K2, then K3
@@ -1709,6 +2002,7 @@ def main(argv) -> int:
     launches, run = main_path(torch, dev, k1, k2)
     served = serving_path(np, torch, dev, k5, card)
     hybrid = hybrid_serving_path(np, torch, dev, k4, k5, card)
+    service = service_path(dev, k1, k2, sim_run=run)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -1722,6 +2016,7 @@ def main(argv) -> int:
     ]
     for k in kernels:
         k["launches_per_round"] = k["launches"] / max(run["rounds"], 1)
+        k["service_launches"] = service["6a"]["launches"][k["name"]]
     kernels.append(dict(
         name="linear_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/linear_scan.cu",

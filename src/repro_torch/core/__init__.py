@@ -1,8 +1,8 @@
 """JASDA core on PyTorch + CUDA: the auction round as a composable library.
 
-The port's counterpart of ``repro.core``.  This slice exports the auction
-round end to end; repartitioning, migration, the baseline schedulers and
-the per-window jit WIS path are not ported yet.
+The port's counterpart of ``repro.core``: the auction round end to end,
+repartitioning and migration; the baseline schedulers and the per-window
+jit WIS path are not ported yet.
 
 Layer map (paper section → module):
   §3.1 window announcement      → windows
@@ -17,6 +17,7 @@ Layer map (paper section → module):
                                   BiddingStrategy backends, RoundFeedback)
   §3/§4 interaction cycle       → scheduler, pipeline
   §6(a) quantitative study      → simulator
+  dynamic MIG repartitioning    → repartition (+ migration ladder)
   fault injection + recovery    → faults (beyond-paper robustness layer)
 """
 from .types import (  # noqa: F401
@@ -105,3 +106,18 @@ from .policy import (  # noqa: F401
 from .scheduler import CommitRecord, JasdaScheduler, SchedulerConfig  # noqa: F401
 from .pipeline import RoundPipeline, pipelined_clear_rounds  # noqa: F401
 from .simulator import SimConfig, SimResult, make_workload, simulate  # noqa: F401
+from .repartition import (  # noqa: F401
+    EnergyAware,
+    EnergyModel,
+    FragmentationAware,
+    MigrationConfig,
+    MigrationPlanner,
+    Move,
+    ProfileLattice,
+    RepartitionCoordinator,
+    RepartitionPolicy,
+    RepartitionState,
+    SliceProfile,
+    StaticInventory,
+    fragmentation_index,
+)

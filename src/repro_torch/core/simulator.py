@@ -168,10 +168,9 @@ def simulate(
     device-dispatch failures are delivered through the event heap; agent
     silent/error windows are enforced by the scheduler's bid-collection
     gate; ``scheduler_crash`` events kill the in-memory state and restore
-    the latest checkpoint (requires ``checkpoint``, an object with the
-    ``save_state`` / ``restore_state`` / ``latest_step`` interface of the
-    reference's ``checkpoint.CheckpointStore``, which is not ported yet;
-    crashes are ignored without one).  With ``checkpoint`` set, the FULL simulation state
+    the latest checkpoint (requires ``checkpoint``, a
+    :class:`~repro_torch.checkpoint.CheckpointStore`; crashes are ignored
+    without one).  With ``checkpoint`` set, the FULL simulation state
     (scheduler + calibrator + agents + event heap + rng) is snapshotted
     before every ``checkpoint_every``-th tick — speculation is flushed
     first (semantics-preserving), so a snapshot never captures an
@@ -226,17 +225,20 @@ def simulate(
     # preemption-aware recovery: ONE planner walks the revocation ladder on
     # every forced slice death (fault path + repartition drains); None keeps
     # the historical lossy path
-    # (core/repartition.py is not ported yet: both layers refuse to run
-    # rather than silently simulating without them)
     planner = None
     if cfg.migration is not None:
-        raise NotImplementedError(
-            "SimConfig.migration is not ported yet (core/repartition.py)")
+        from .repartition import MigrationConfig, MigrationPlanner
+
+        mig_cfg = (cfg.migration if isinstance(cfg.migration, MigrationConfig)
+                   else None)
+        planner = MigrationPlanner(scheduler, mig_cfg)
 
     coord = None
     if cfg.repartition is not None:
-        raise NotImplementedError(
-            "SimConfig.repartition is not ported yet (core/repartition.py)")
+        from .repartition import RepartitionCoordinator
+
+        coord = RepartitionCoordinator(scheduler, cfg.repartition,
+                                       migration=planner)
 
     dead_slices: Dict[str, SliceSpec] = {}
     jct: Dict[str, float] = {}

@@ -155,10 +155,20 @@ def test_mesh_refused():
 
 @pytest.mark.parametrize("layer", ["repartition", "migration"])
 def test_unported_sim_layers_refuse(layer):
-    """Simulator layers not ported yet raise instead of running without
-    them."""
+    """The simulator layers that once refused to run (repartition,
+    migration) are ported: they run and give the reference's result."""
+    from repro.core import MigrationConfig as RefMigrationConfig
+    from repro.core import StaticInventory as RefStaticInventory
+    from repro_torch.core import MigrationConfig, StaticInventory
+
+    port_layer, ref_layer = {
+        "repartition": (StaticInventory(), RefStaticInventory()),
+        "migration": (MigrationConfig(), RefMigrationConfig())}[layer]
     cfg = SchedulerConfig.from_policy(Policy(), device="cpu")
     sched = JasdaScheduler(_slices(SliceSpec), cfg)
-    with pytest.raises(NotImplementedError):
-        simulate(sched, make_workload(3, seed=0),
-                 SimConfig(t_end=5.0, **{layer: object()}))
+    res = simulate(sched, make_workload(3, seed=0),
+                   SimConfig(t_end=5.0, **{layer: port_layer}))
+    ref = ref_simulate(RefScheduler(_slices(RefSliceSpec), RefPolicy()),
+                       ref_make_workload(3, seed=0),
+                       RefSimConfig(t_end=5.0, **{layer: ref_layer}))
+    assert res.summary() == ref.summary()
