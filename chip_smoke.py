@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only wis       # phases 1, 2 (K1, K2) and 2e alone
     python3 chip_smoke.py --only service   # phases 1 and 6 alone
+    python3 chip_smoke.py --only train     # phases 1 and 7 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -118,7 +119,24 @@ Phases (any failure exits non-zero and prints no result):
    through a scheduler crash at t = 10.5, restored from the store: its
    commit log and summary must equal phase 3's; 6e runs ``repro_torch.launch.serve_auction
    --json --t-end 60`` on cuda and on cpu: both exit 0 with the same
-   line.  No soak may mark a backend failed.
+   line.  No soak may mark a backend failed;
+7. training falcon-mamba-7b under the JASDA executor: 7a holds K5's
+   backward (``linear_scan_bwd_kernel``) bit-equal to its plain reverse
+   loop (da, db, dh0) at the training shape (4, 512, 131072) float32 with
+   and without h0 (and a cotangent on h_T), (1, 37, 131072), the RG-LRU
+   width (1, 512, 4096) and bfloat16 (2, 256, 8192), timed beside its
+   plain version and its bound; 7b takes one train step of full-width
+   falcon-mamba-7b cut to 32 of its 64 layers (bfloat16, batch 4 x 512,
+   AdamW, remat, clip 1.0) through K5 and, from the same params and
+   batch, the same loss and gradient norm through the plain scan: within
+   1e-3 relative, with 2 x 32 forward and 32 backward K5 launches; 7c
+   trains 8 steps of it under ``JasdaExecutor`` through
+   ``repro_torch.launch.train.train`` (every step once, in order, in
+   contiguous chunks, finite losses, the last below the first; step
+   times, tokens/s and the peak memory printed) and profiles one more
+   step by kernel name; 7d runs ``python -m repro_torch.launch.train
+   --arch falcon_mamba_7b --reduced --steps 20`` on cuda and on cpu in
+   subprocesses: both exit 0 and their losses agree within 1e-4.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; runs
@@ -126,7 +144,10 @@ nothing on the host in its place.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1529,6 +1550,8 @@ def k4_prefill_gates(out: dict, lens) -> None:
 def kernel_group(name: str) -> str:
     """The kind of work a device activity does, read from its name."""
     n = name.lower()
+    if "linear_scan_bwd_kernel" in n:
+        return "K5 backward"
     if "linear_scan_kernel" in n:
         return "K5"
     if "flash_attention_kernel" in n or "flash_attention_tc_kernel" in n:
@@ -1938,11 +1961,354 @@ def service_path(dev, k1, k2, sim_run=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training falcon-mamba-7b under the JASDA executor
+# ---------------------------------------------------------------------------
+
+#: the full-width training run: falcon-mamba-7b cut from 64 to 32 layers.
+#: AdamW's 12 bytes a param at 64 layers, 87 GB, exceed the card's 80 GB;
+#: 32 layers peak at 56.1 GB.  40 layers ran too, but their loss did not
+#: fall over the 8 steps under the launcher's (untuned) schedule (PERF.md)
+TRAIN_LAYERS = 32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
+#: the TPU kernel whose backward the K5 backward is; the reference has no
+#: backward kernel (it differentiates its scan through XLA)
+K5_BWD_REPLACES = ("src/repro/kernels/linear_scan/kernel.py:51 (backward; "
+                   "the reference has no backward kernel)")
+#: the launcher's reduced run, on the card and on the host
+TRAIN_LAUNCHER_ARGV = ["--arch", "falcon_mamba_7b", "--reduced", "--steps", "20"]
+
+
+def check_scan_bwd_kernel(torch, dev, k5, ref):
+    """K5's backward bit-equal to its plain reverse loop: da, db and dh0;
+    times and bounds.  The training path's case (no h0, no cotangent on
+    h_T) is the row's main case."""
+    d_full = 8192 * 16
+    cases = [(4, 512, d_full, torch.float32, True),
+             (4, 512, d_full, torch.float32, False),
+             (1, 37, d_full, torch.float32, True),
+             (1, 512, 4096, torch.float32, False),
+             (2, 256, 8192, torch.bfloat16, False)]
+    lib = k5._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for n, (b, t, d, dtype, with_h0) in enumerate(cases):
+        a, x, h0 = scan_inputs(torch, dev, b, t, d, dtype, SEED + 40 + n)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 60 + n)
+        gh = torch.randn((b, t, d), generator=g, device=dev).to(dtype)
+        ghT = torch.randn((b, d), generator=g, device=dev) if with_h0 else None
+        h0 = h0 if with_h0 else None
+        h, _ = k5.linear_scan_cuda(a, x, h0)
+        del x
+        got = k5.linear_scan_bwd_cuda(a, h, h0, gh, ghT)
+        want = ref.linear_scan_bwd_reference(a, h, h0, gh, ghT)
+        torch.cuda.synchronize()
+        name = (f"K5 backward ({b}, {t}, {d}) {str(dtype)[6:]} "
+                f"h0={with_h0} ghT={with_h0}")
+        for part, u, v in zip(("da", "db", "dh0"), got, want):
+            if (u is None) != (v is None) or (
+                    u is not None and not torch.equal(u, v)):
+                err = (float((u.float() - v.float()).abs().max().item())
+                       if u is not None and v is not None else None)
+                raise AssertionError(f"{name}: {part} not bit-equal "
+                                     f"(max abs {err})")
+            if u is not None and not torch.isfinite(u).all():
+                raise AssertionError(f"{name}: non-finite {part}")
+        del got, want
+        h0f = None if h0 is None else h0.float().contiguous()
+        da, db = torch.empty_like(a), torch.empty_like(a)
+        dh0 = None if h0 is None else torch.empty_like(h0f)
+        code = k5._DTYPES[dtype]
+
+        def raw():  # the kernel alone: no validation or allocation per call
+            lib.linear_scan_bwd_launch(
+                a.data_ptr(), h.data_ptr(), None if h0f is None else h0f.data_ptr(),
+                gh.data_ptr(), None if ghT is None else ghT.data_ptr(),
+                b, t, d, code, da.data_ptr(), db.data_ptr(),
+                None if dh0 is None else dh0.data_ptr(), stream)
+
+        ms = time_ms(torch, raw, reps=11, inner=10)
+        plain_ms = time_ms(torch, lambda: ref.linear_scan_bwd_reference(
+            a, h, h0, gh, ghT), reps=3, inner=1)
+        fwd_ms = None
+        if (b, t, d) == (4, 512, d_full) and not with_h0:
+            # the forward at the training shape, for the record (the
+            # cotangent stands in for the input; h is overwritten)
+            fwd_ms = time_ms(torch, lambda: lib.linear_scan_launch(
+                a.data_ptr(), gh.data_ptr(), None, b, t, d, code,
+                h.data_ptr(), da.data_ptr(), stream), reps=11, inner=10)
+        size = a.element_size()
+        # a, h and gh read once, da and db written once; with h0, h0 and
+        # ghT read and dh0 written (float32)
+        n_bytes = 5 * b * t * d * size + (3 * b * d * 4 if with_h0 else 0)
+        n_ops = 3 * b * t * d  # one add and two multiplies an element
+        bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
+        log(f"{name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_s * 1e3:.5f} ms ({n_bytes} bytes)"
+            + ("" if fwd_ms is None else
+               f"; the forward (K5) at this shape {fwd_ms:.4f} ms, bound "
+               f"{3 * b * t * d * size / HBM_BYTES_PER_S * 1e3:.5f} ms"))
+        rows.append({
+            "shape": [b, t, d], "dtype": str(dtype)[6:], "h0": with_h0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_OPS_PER_S
+            else "operations", "fwd_ms": fwd_ms,
+        })
+        del a, h, h0, gh, ghT, da, db, dh0, h0f
+    torch.cuda.empty_cache()
+    main = next(r for r in rows if r["shape"] == [4, 512, d_full] and not r["h0"])
+    return {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "shape": {"B": 4, "T": 512, "D": d_full, "dtype": "float32"},
+            "cases": rows}
+
+
+def _train_batch(torch, dev, cfg, step: int):
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(step).items()}
+
+
+def train_step_check(torch, dev, k5, card: str) -> dict:
+    """7b: one train step at full width through K5 against the same step's
+    loss and gradient norm through the plain scan, from the same params
+    and batch, both on the card."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.training import (adamw, global_norm, make_accum_steps,
+                                      make_train_step, warmup_cosine)
+
+    cfg = get("falcon_mamba_7b").replace(n_layers=TRAIN_LAYERS)
+    params = Model(cfg).init(SEED, device=dev)
+    batch = _train_batch(torch, dev, cfg, 0)
+    opt = adamw(warmup_cosine(3e-4, min(50, TRAIN_STEPS // 4 + 1), TRAIN_STEPS))
+
+    # the plain scan's loss and gradient norm (no update: params unchanged)
+    k5.LAUNCHES.update(linear_scan=0, linear_scan_bwd=0)
+    micro_step, _ = make_accum_steps(Model(cfg, scan_impl="torch"), opt,
+                                     accum_dtype=cfg.dtype)
+    t0 = time.perf_counter()
+    acc, plain_loss = micro_step(params, _zeros_like(torch, params), batch)
+    plain_norm = float(global_norm(acc))
+    plain_loss = float(plain_loss)
+    plain_s = time.perf_counter() - t0
+    if any(k5.LAUNCHES.values()):
+        raise AssertionError(f"the plain-scan step launched K5: {k5.LAUNCHES}")
+    del acc
+    torch.cuda.empty_cache()
+
+    # the same step through K5, as the trainer runs it (update included)
+    opt_state = opt.init(params)
+    step = make_train_step(Model(cfg), opt)
+    k5.LAUNCHES.update(linear_scan=0, linear_scan_bwd=0)
+    t0 = time.perf_counter()
+    params, opt_state, m = step(params, opt_state, batch, 0)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    k5_s = time.perf_counter() - t0
+    fwd, bwd = k5.LAUNCHES["linear_scan"], k5.LAUNCHES["linear_scan_bwd"]
+    del params, opt_state, step, m
+    torch.cuda.empty_cache()
+
+    loss_gap = abs(loss - plain_loss) / abs(plain_loss)
+    norm_gap = abs(norm - plain_norm) / abs(plain_norm)
+    log(f"7b one train step, falcon-mamba-7b {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} [{card}]: K5 loss {loss!r} grad norm "
+        f"{norm!r} ({k5_s:.2f} s, first step); plain scan loss {plain_loss!r} "
+        f"grad norm {plain_norm!r} ({plain_s:.2f} s, no update); relative gaps "
+        f"{loss_gap:.3g} and {norm_gap:.3g} (tolerance 1e-3); K5 launches "
+        f"{fwd} forward, {bwd} backward")
+    if not (math.isfinite(loss) and math.isfinite(norm)):
+        raise AssertionError("7b: non-finite loss or gradient norm")
+    if loss_gap > 1e-3 or norm_gap > 1e-3:
+        raise AssertionError(f"7b: K5 and plain-scan steps differ: loss gap "
+                             f"{loss_gap}, grad norm gap {norm_gap}")
+    want_fwd, want_bwd = 2 * cfg.n_layers, cfg.n_layers  # remat recomputes
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        raise AssertionError(f"7b: K5 launched {fwd} forward and {bwd} "
+                             f"backward, expected {want_fwd} and {want_bwd}")
+    return {"loss": loss, "grad_norm": norm, "plain_loss": plain_loss,
+            "plain_grad_norm": plain_norm, "loss_gap": loss_gap,
+            "grad_norm_gap": norm_gap, "launches": {"fwd": fwd, "bwd": bwd},
+            "k5_step_s": k5_s, "plain_grads_s": plain_s}
+
+
+def _zeros_like(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(torch, v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def train_profile(torch, run, step: int, card: str) -> dict:
+    """One more step of ``run`` under torch.profiler: its device time by
+    kernel group and name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.run_steps(step, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    groups, names = {}, {}
+    for e in prof.events():
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+            continue
+        sec = (e.time_range.end - e.time_range.start) / 1e6
+        g = kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + sec
+        label = kernel_label(e.name)
+        names[label] = names.get(label, 0.0) + sec
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("7c train step device time: not measured (the profiler saw no "
+            "device time)")
+        return {}
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    log(f"7c one train step (step {step}) under torch.profiler [{card}]: "
+        f"{wall:.3f} s wall, device busy {busy:.4f} s ({100 * busy / wall:.1f}% "
+        f"of the wall); by group: " + ", ".join(
+            f"{g} {v:.4f} s" for g, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + "; top kernels: " + ", ".join(f"{k} {v:.4f} s" for k, v in top))
+    return {"wall_s": wall, "busy_s": busy, "groups": groups}
+
+
+def train_split(torch, dev, run, step: int, card: str) -> dict:
+    """One more step of ``run`` as the trainer's two halves, each timed on
+    the host clock between synchronises: the loss and its gradients
+    (``make_accum_steps``' micro step) and clip + the run's optimizer +
+    apply (its apply step)."""
+    from repro_torch.training import make_accum_steps
+
+    micro, apply_step = make_accum_steps(run.model, run.opt,
+                                         accum_dtype=run.model.cfg.dtype)
+    params, opt_state = run.state["params"], run.state["opt"]
+    batch = _train_batch(torch, dev, run.model.cfg, step)
+    acc = _zeros_like(torch, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, loss = micro(params, acc, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt_state, m = apply_step(params, opt_state, acc, step)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del acc
+    torch.cuda.empty_cache()
+    out = {"grad_s": t1 - t0, "update_s": t2 - t1, "loss": float(loss)}
+    log(f"7c one step (step {step}) in two halves [{card}]: loss and "
+        f"gradients {out['grad_s']:.4f} s, clip + AdamW + apply "
+        f"{out['update_s']:.4f} s (host clock, synchronised)")
+    return out
+
+
+def training_path(torch, dev, k5, k5_ref, card: str) -> dict:
+    """Phase 7: K5's backward (7a), one train step against the plain scan
+    (7b), 8 steps under the executor through the launcher's ``train``
+    (7c), the launcher itself on the card and on the host (7d)."""
+    from repro_torch.configs import get, info
+    from repro_torch.launch.train import train
+
+    t_phase = time.perf_counter()
+    gc.collect()  # what phases 4-6 left behind, before 7 allocates
+    torch.cuda.empty_cache()
+    log(f"phase 7 starts with {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated on the card")
+    out = {"7a": check_scan_bwd_kernel(torch, dev, k5, k5_ref)}
+    out["7b"] = train_step_check(torch, dev, k5, card)
+
+    # 7c: the launcher's function, 8 steps under JasdaExecutor
+    cfg = get("falcon_mamba_7b").replace(n_layers=TRAIN_LAYERS)
+    boundaries = []
+    lane = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated() > 1e9:
+        raise AssertionError(f"7c: 7b left {torch.cuda.memory_allocated()} "
+                             f"bytes allocated on the card")
+    torch.cuda.reset_peak_memory_stats()
+    k5.LAUNCHES.update(linear_scan=0, linear_scan_bwd=0)
+    t0 = time.perf_counter()
+    run = train(cfg, optimizer=info("falcon_mamba_7b").optimizer,
+                steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                device=dev, init_device=dev,
+                checkpoint_fn=lambda s, _state: boundaries.append(s),
+                lane_bytes=lane, max_wall=600.0)
+    wall = time.perf_counter() - t0
+    launches = dict(k5.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ran = [i for s0, n in run.chunks for i in range(s0, s0 + n)]
+    ends = [s0 + n for s0, n in run.chunks]
+    if ran != list(range(TRAIN_STEPS)) or boundaries != ends:
+        raise AssertionError(f"7c: chunks {run.chunks} and checkpoints "
+                             f"{boundaries} do not run every step once, in order")
+    if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
+        raise AssertionError(f"7c: non-finite losses {run.losses}")
+    if not run.losses[-1] < run.losses[0]:
+        raise AssertionError(f"7c: the loss did not fall: {run.losses}")
+    want = {"linear_scan": 2 * cfg.n_layers * TRAIN_STEPS,
+            "linear_scan_bwd": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"7c: K5 launches {launches}, expected {want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    free_gb = lane / 1e9 - peak_gb
+    log(f"7c falcon-mamba-7b ({cfg.n_layers} of 64 layers, {run.n_params} "
+        f"params, AdamW, remat, clip 1.0) under JasdaExecutor [{card}]: "
+        f"{TRAIN_STEPS} steps in chunks {run.chunks}, checkpoints at "
+        f"{boundaries}, {wall:.2f} s wall; losses {run.losses}; grad norms "
+        f"{run.grad_norms}; step s {[round(x, 4) for x in run.step_s]}; "
+        f"tokens/s a step {[round(tokens / x, 1) for x in run.step_s]}; "
+        f"K5 launches {launches}; peak memory {peak_gb:.3f} GB "
+        f"({free_gb:.3f} GB of the card's {lane / 1e9:.3f} GB free)")
+    prof = train_profile(torch, run, TRAIN_STEPS, card)
+    split = train_split(torch, dev, run, TRAIN_STEPS + 1, card)
+    out["7c"] = {"losses": run.losses, "grad_norms": run.grad_norms,
+                 "step_s": run.step_s, "chunks": run.chunks, "wall_s": wall,
+                 "peak_gb": peak_gb, "launches": launches,
+                 "n_params": run.n_params, "profile": prof, "split": split}
+    del run
+    torch.cuda.empty_cache()
+
+    # 7d: the launcher in subprocesses, reduced, on the card and the host
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_LAUNCHER_ARGV, "--device", device],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"7d: launch.train --device {device} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        line = next(x for x in proc.stdout.splitlines()
+                    if x.startswith("losses: "))
+        losses[device] = json.loads(line[len("losses: "):])
+        log(f"7d launch.train {' '.join(TRAIN_LAUNCHER_ARGV)} --device "
+            f"{device}: exit 0 in {time.perf_counter() - t0:.2f} s; "
+            + proc.stdout.strip().splitlines()[-1])
+    a, b = losses["cuda"], losses["cpu"]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    if len(a) != len(b) or not gap <= 1e-4:
+        raise AssertionError(f"7d: cuda and cpu losses differ (largest "
+                             f"relative gap {gap}): {a} vs {b}")
+    log(f"7d: the {len(a)} losses agree on cuda and cpu, largest relative "
+        f"gap {gap:.3g} (tolerance 1e-4)")
+    out["7d"] = {"gap": gap, "losses": losses}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 7 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     only = None
     if argv:
-        if argv[:1] != ["--only"] or argv[1:] not in (["wis"], ["service"]):
-            return fail(f"usage: chip_smoke.py [--only wis|service], not {argv}")
+        if argv[:1] != ["--only"] or argv[1:] not in (["wis"], ["service"],
+                                                       ["train"]):
+            return fail(f"usage: chip_smoke.py [--only wis|service|train], "
+                        f"not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -1981,6 +2347,17 @@ def main(argv) -> int:
         for fn, regs in ptxas_report(report):
             log(f"  ptxas {name} {fn}: {regs}")
 
+    if only == "train":  # the build, then training alone
+        training = training_path(torch, dev, k5, k5_ref, card)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [dict(
+            name="linear_scan_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/linear_scan.cu",
+            replaces=K5_BWD_REPLACES,
+            launches=training["7c"]["launches"]["linear_scan_bwd"],
+            library_ms=None, **training["7a"])], "training": training}),
+            flush=True)
+        return 0
     if only == "service":  # the build, then the streaming service alone
         service = service_path(dev, k1, k2)
         print(card, flush=True)
@@ -2003,6 +2380,7 @@ def main(argv) -> int:
     served = serving_path(np, torch, dev, k5, card)
     hybrid = hybrid_serving_path(np, torch, dev, k4, k5, card)
     service = service_path(dev, k1, k2, sim_run=run)
+    training = training_path(torch, dev, k5, k5_ref, card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -2021,7 +2399,14 @@ def main(argv) -> int:
         name="linear_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/linear_scan.cu",
         replaces="src/repro/kernels/linear_scan/kernel.py:51",
-        launches=served["launches"], library_ms=None, **k5_row))
+        launches=served["launches"], library_ms=None,
+        train_launches=training["7c"]["launches"]["linear_scan"], **k5_row))
+    kernels.append(dict(
+        name="linear_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/linear_scan.cu",
+        replaces=K5_BWD_REPLACES,
+        launches=training["7c"]["launches"]["linear_scan_bwd"],
+        library_ms=None, **training["7a"]))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -66,39 +66,41 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
     dict keys are visited sorted (an ``OrderedDict`` in its own order),
     lists, tuples and namedtuples in order; ``None`` holds no leaf; any
     other value is one leaf.  ``unflatten(leaves)`` rebuilds the same
-    structure around new leaves.
+    structure around new leaves.  The unflatten holds no reference to the
+    leaves, so dropping them frees them at once (no reference cycle waits
+    for the garbage collector: a leaf may be a large device tensor).
     """
     leaves: List[Any] = []
-
-    def build(node):
-        if node is None:
-            return lambda it: None
-        if isinstance(node, dict):
-            keys = (list(node) if isinstance(node, OrderedDict)
-                    else sorted(node))
-            subs = [build(node[k]) for k in keys]
-            kind = type(node)
-            return lambda it: kind(
-                (k, sub(it)) for k, sub in zip(keys, subs))
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            subs = [build(v) for v in node]
-            kind = type(node)
-            return lambda it: kind(*(sub(it) for sub in subs))
-        if isinstance(node, (list, tuple)):
-            subs = [build(v) for v in node]
-            kind = type(node)
-            return lambda it: kind(sub(it) for sub in subs)
-        leaves.append(node)
-        return lambda it: next(it)
-
-    rebuild = build(tree)
+    rebuild = _build(tree, leaves)
     return leaves, lambda new: rebuild(iter(new))
+
+
+def _build(node, leaves: List[Any]):
+    """Append ``node``'s leaves to ``leaves``; return its rebuild function."""
+    if node is None:
+        return lambda it: None
+    if isinstance(node, dict):
+        keys = list(node) if isinstance(node, OrderedDict) else sorted(node)
+        subs = [_build(node[k], leaves) for k in keys]
+        kind = type(node)
+        return lambda it: kind((k, sub(it)) for k, sub in zip(keys, subs))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        subs = [_build(v, leaves) for v in node]
+        kind = type(node)
+        return lambda it: kind(*(sub(it) for sub in subs))
+    if isinstance(node, (list, tuple)):
+        subs = [_build(v, leaves) for v in node]
+        kind = type(node)
+        return lambda it: kind(sub(it) for sub in subs)
+    leaves.append(node)
+    return lambda it: next(it)
 
 
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A leaf as the numpy array stored on disk, and its logical dtype."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        # a copy, so an in-place update after save() cannot reach the write
+        t = leaf.detach().to("cpu", copy=True)
         name = _EXT_NAMES.get(t.dtype)
         if name is not None:
             _, stored, readable = _EXT_DTYPES[name]

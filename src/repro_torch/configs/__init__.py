@@ -1,2 +1,2 @@
 """Architecture configs the port serves (one module per arch)."""
-from .registry import ARCH_NAMES, PORTED, get, reduced  # noqa: F401
+from .registry import ARCH_NAMES, PORTED, ArchInfo, get, info, reduced  # noqa: F401

@@ -6,6 +6,7 @@ Sub-quadratic: long_500k RUNS (O(1) state per token). d_inner 8192/16 ✓.
 import torch
 
 from ..models.config import ModelConfig
+from .registry import ArchInfo
 
 
 def config() -> ModelConfig:
@@ -16,6 +17,16 @@ def config() -> ModelConfig:
         ssm_state=16, ssm_conv=4, ssm_expand=2,
         dtype=torch.bfloat16,
     )
+
+
+INFO = ArchInfo(
+    infer_replicate_fsdp=True,
+    optimizer="adamw",
+    seq_shard_train=True,
+    microbatches={"train_4k": 4},
+    long_context=True,
+    notes="attention-free; decode state is O(1) — long_500k applicable.",
+)
 
 
 def reduced() -> ModelConfig:

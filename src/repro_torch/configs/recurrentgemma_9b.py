@@ -8,6 +8,7 @@ window + O(1) LRU state): long_500k RUNS.
 import torch
 
 from ..models.config import ModelConfig
+from .registry import ArchInfo
 
 
 def config() -> ModelConfig:
@@ -19,6 +20,16 @@ def config() -> ModelConfig:
         act="gelu", gated_mlp=True,
         dtype=torch.bfloat16,
     )
+
+
+INFO = ArchInfo(
+    infer_replicate_fsdp=True,
+    optimizer="adamw",
+    seq_shard_train=True,
+    microbatches={"train_4k": 4},
+    long_context=True,
+    notes="ring KV cache bounded at window=2048; kv=1 replicated.",
+)
 
 
 def reduced() -> ModelConfig:

@@ -15,7 +15,10 @@ the ``repro`` package -- and rebuild the port's objects from them:
 * :func:`to_port` — any reference dataclass value (``Policy``,
   ``ScoringPolicy``, clearing backends, ...) → the port's twin;
 * :func:`model_params` — a reference model's param tree (numpy leaves, or
-  anything ``np.asarray`` reads) → the port's tree of torch tensors.
+  anything ``np.asarray`` reads) → the port's tree of torch tensors;
+* :func:`optimizer_state` — a reference optimizer state (AdamW's float32
+  ``m`` / ``v``, Adafactor's factored ``vr`` / ``vc`` and unfactored ``v``)
+  → the port's, so a JAX training checkpoint resumes in the port.
 
 The tests use them to feed both packages the same inputs.
 """
@@ -31,7 +34,7 @@ import torch
 from .kernels.common import resolve_device
 
 __all__ = ["to_port", "policy", "calibrator", "packed_round", "settle_arrays",
-           "model_params"]
+           "model_params", "optimizer_state"]
 
 _REF = "repro"
 _PORT = "repro_torch"
@@ -134,3 +137,14 @@ def model_params(ref_params, device=None):
     if isinstance(ref_params, Mapping):
         return {k: model_params(v, dev) for k, v in ref_params.items()}
     return _tensor(ref_params).to(dev)
+
+
+def optimizer_state(ref_state, device=None):
+    """A reference optimizer state → the port's, leaf for leaf, bits kept.
+
+    Both packages' optimizers (``training/optimizer.py``) keep the same
+    nested dicts: ``{"m", "v"}`` for AdamW, each shaped like the params;
+    ``{"stats"}`` for Adafactor, holding ``{"vr", "vc"}`` (factored) or
+    ``{"v"}`` per param.  The step counter is not part of the state.
+    """
+    return model_params(ref_state, device)

@@ -121,3 +121,9 @@ from .repartition import (  # noqa: F401
     StaticInventory,
     fragmentation_index,
 )
+from .baselines import (  # noqa: F401
+    AuctionScheduler,
+    BackfillScheduler,
+    BestFitScheduler,
+    FifoScheduler,
+)

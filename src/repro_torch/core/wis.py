@@ -13,6 +13,8 @@ Two per-window implementations:
 
 * :func:`wis_select`       — numpy host path (the scheduler's default).
 * :func:`wis_brute_force`  — O(2^M) oracle for property tests.
+* :func:`wis_select_torch` — the reference's fixed-size padded, mask-based
+  WIS (``wis_select_jax``, kept as an alias), as a torch function.
 
 Plus the BATCHED multi-window machinery behind the device-resident round
 settle (the clearing-side twin of the batched scoring engine):
@@ -46,6 +48,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .types import OVERLAP_EPS
 
@@ -53,6 +56,8 @@ __all__ = [
     "wis_select",
     "wis_brute_force",
     "total_weight",
+    "wis_select_torch",
+    "wis_select_jax",
     "RoundSelector",
     "SettlePrefetch",
     "PackedSettle",
@@ -153,6 +158,82 @@ def wis_brute_force(
 def total_weight(weights: Sequence[float], selected: Sequence[int]) -> float:
     w = np.asarray(weights, dtype=np.float64)
     return float(w[np.asarray(selected, dtype=np.int64)].sum()) if len(selected) else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Fixed-size, mask-based path (the reference's jit-able ``wis_select_jax``)
+# ---------------------------------------------------------------------------
+
+
+def wis_select_torch(starts, ends, weights, valid=None):
+    """WIS over a fixed-size padded pool, in float32.
+
+    Args:
+      starts, ends, weights: (M,) arrays or tensors (padded entries arbitrary).
+      valid: optional (M,) bool mask; invalid entries are excluded.
+
+    Returns:
+      (selected_mask (M,) bool tensor in ORIGINAL order, total 0-dim
+      float32 tensor), on ``starts``' device (the CPU for arrays).
+
+    The reference's steps: a stable sort by end, preds by
+    ``searchsorted(side="right")``, the DP as a loop over the sorted lanes
+    into dp[0..M] (zeros first; a pred past lane j reads its slot's
+    initial 0, as the reference's scan does), a backtrack loop from lane M,
+    and the mask scattered back to the original order.  Padded/invalid
+    entries get weight 0 and a point interval at 3e38.  The loops run on
+    host float32 copies.  Where a taken lane's pred sends the backtrack
+    back to a lane it already visited, the reference's ``while_loop``
+    never ends; this raises ``ValueError`` instead (ROADMAP.md §3).
+    """
+    def as_f32(x):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=torch.float32)
+
+    device = starts.device if torch.is_tensor(starts) else torch.device("cpu")
+    st, en, w = (as_f32(x).to(device) for x in (starts, ends, weights))
+    m = st.shape[0]
+    ok = (torch.ones(m, dtype=torch.bool, device=device) if valid is None
+          else torch.as_tensor(np.asarray(valid) if not torch.is_tensor(valid)
+                               else valid, dtype=torch.bool).to(device))
+    big = torch.tensor(3.0e38, dtype=torch.float32, device=device)
+    st = torch.where(ok, st, big)
+    en = torch.where(ok, en, big)
+    w = torch.where(ok, w, torch.zeros((), dtype=torch.float32, device=device))
+
+    order = torch.argsort(en, stable=True)
+    st_o, en_o, w_o = st[order], en[order], w[order]
+    pred = torch.searchsorted(en_o, st_o, right=True)  # (M,) into dp[0..M]
+
+    w_h = w_o.cpu().numpy()
+    p_h = pred.cpu().numpy()
+    dp = np.zeros(m + 1, dtype=np.float32)
+    take = np.zeros(m, dtype=bool)
+    for j in range(m):
+        with_j = w_h[j] + dp[p_h[j]]
+        without_j = dp[j]
+        take[j] = with_j > without_j
+        dp[j + 1] = with_j if take[j] else without_j
+
+    sel_sorted = np.zeros(m, dtype=bool)
+    j, seen = m, set()
+    while j > 0:
+        if j in seen:
+            raise ValueError(
+                f"WIS backtrack revisits lane {j}: a taken zero-length "
+                "interval's pred does not lie below it")
+        seen.add(j)
+        t = take[j - 1]
+        sel_sorted[j - 1] = t
+        j = int(p_h[j - 1]) if t else j - 1
+
+    mask = torch.zeros(m, dtype=torch.bool, device=device)
+    mask[order] = torch.from_numpy(sel_sorted).to(device)
+    return mask & ok, torch.tensor(dp[m], dtype=torch.float32, device=device)
+
+
+#: the reference's name
+wis_select_jax = wis_select_torch
 
 
 # ---------------------------------------------------------------------------

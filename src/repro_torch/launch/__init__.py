@@ -1,1 +1,1 @@
-"""Launchers of the port: the serving driver."""
+"""Launchers of the port: serving, the streaming service and training."""

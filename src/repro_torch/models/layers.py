@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
 
-__all__ = ["rms_norm", "layer_norm", "rope", "attention", "mlp", "gelu"]
+__all__ = ["rms_norm", "layer_norm", "rope", "attention", "mlp", "gelu",
+           "softmax_cross_entropy"]
 
 NEG_INF = -1e30
 
@@ -192,3 +193,26 @@ def mlp(x, p, *, gated: bool, act: str):
     else:
         h = _act(torch.einsum("bsd,df->bsf", x, p["w_up"]), act)
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits, labels, *, real_vocab: int):
+    """Mean CE over tokens; padded vocab entries are masked out.
+
+    logits: (B, S, Vp) in model dtype; computed in f32 via logsumexp.
+    labels: (B, S) integer (−1 = ignore).
+    """
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if real_vocab < vp:
+        pad_mask = torch.arange(vp, device=logits.device) >= real_vocab
+        logits = torch.where(pad_mask, NEG_INF, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    nll = lse - gold
+    valid = (labels >= 0).float()
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

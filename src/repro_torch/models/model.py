@@ -5,16 +5,21 @@ and ``hybrid``; ``moe``, ``vlm`` and ``encdec`` raise ``NotImplementedError``
 (``ROADMAP.md`` §1).
 
 Execution paths:
-  * ``forward``      — full-sequence logits (eval).
+  * ``forward``      — full-sequence logits (training / eval); ``loss_fn``
+                       is its mean cross entropy.
   * ``prefill``      — full sequence, returns last-position logits + cache.
   * ``decode_step``  — one token against a cache (serving inner loop).
 
 Params keep the reference's stacked layout: each superblock leaf has a
 leading layer axis, and depth is a Python loop over it (the reference's
 ``lax.scan``), so conversion stays one to one.  Caches are stacked the
-same way.  Where the reference returns a new cache, the port writes the
-new state into the cache it was given, in place, and returns it: a full
-width mamba state is 134 MB a step that need not be copied.
+same way.  With ``remat`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around each superblock) each block of the stack runs
+under ``torch.utils.checkpoint``: its activations are recomputed in the
+backward and only its input is kept.  Where the reference returns a new
+cache, the port writes the new state into the cache it was given, in
+place, and returns it: a full width mamba state is 134 MB a step that
+need not be copied.
 
 Attention caches:
   * dense self-attn — linear cache (B, Tmax, Hkv, hd), written at
@@ -28,10 +33,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from .config import ModelConfig
-from .layers import attention, mlp, rms_norm, rope
+from .layers import attention, mlp, rms_norm, rope, softmax_cross_entropy
 from .params import PORTED_FAMILIES, init_params
 from .rglru import rglru_decode_step, rglru_seq
 from .ssm import mamba_decode_step, mamba_seq
@@ -175,26 +181,36 @@ class Model:
     # superblock stack (Python loop over depth)
     # =========================================================================
     def _run_layers(self, stack_params, x, positions, *, names, n_layers,
-                    cache=None, index=None, impl="auto", decode=False):
+                    cache=None, index=None, impl="auto", decode=False,
+                    remat=False):
+        remat = remat and cache is None and torch.is_grad_enabled()
         for layer in range(n_layers):
             for name in names:
                 kind = name.split("_", 1)[1]
+                p = _index(stack_params[name], layer)
+                if remat:
+                    x = checkpoint(self._block_out, kind, p, x, positions,
+                                   impl, use_reentrant=False)
+                    continue
                 c = _index(cache[name], layer) if cache is not None else None
                 x, state = self._apply_block(
-                    kind, _index(stack_params[name], layer), x, positions,
-                    cache=c, index=index, impl=impl, decode=decode)
+                    kind, p, x, positions, cache=c, index=index, impl=impl,
+                    decode=decode)
                 if state is not None:
                     _write(c, state)
         return x
 
+    def _block_out(self, kind, p, x, positions, impl):
+        return self._apply_block(kind, p, x, positions, impl=impl)[0]
+
     def _run_all(self, params, x, positions, *, cache=None, index=None,
-                 impl="auto", decode=False):
+                 impl="auto", decode=False, remat=False):
         cfg = self.cfg
         blocks = params["blocks"]
         x = self._run_layers(
             blocks, x, positions, names=list(blocks), n_layers=cfg.n_super,
             cache=None if cache is None else cache["blocks"], index=index,
-            impl=impl, decode=decode)
+            impl=impl, decode=decode, remat=remat)
         if "tail" in params:
             x = self._run_layers(
                 params["tail"], x, positions, names=list(params["tail"]),
@@ -222,17 +238,32 @@ class Model:
         return torch.einsum("bsd,dv->bsv", x, params["unembed"])
 
     # =========================================================================
-    # full forward (eval)
+    # full forward (training / eval)
     # =========================================================================
-    def forward(self, params, tokens, *, impl="auto", positions=None):
-        """tokens (B, S) → (logits (B, S, Vp), aux loss 0)."""
+    def forward(self, params, tokens, *, impl="auto", remat=True,
+                positions=None):
+        """tokens (B, S) → (logits (B, S, Vp), aux loss 0).
+
+        ``remat`` checkpoints each block of the stack (not the tail, as the
+        reference) when autograd records; it changes no value."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
         x = self._run_all(params, self.embed(params, tokens), positions,
-                          impl=impl)
+                          impl=impl, remat=remat)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self.unembed(params, x), aux
+
+    # =========================================================================
+    # loss
+    # =========================================================================
+    def loss_fn(self, params, batch, *, impl="auto", remat=True):
+        """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"},
+        (B, S) integer tensors on the params' device), a float32 scalar."""
+        logits, _ = self.forward(params, batch["tokens"], impl=impl,
+                                 remat=remat)
+        return softmax_cross_entropy(logits, batch["labels"],
+                                     real_vocab=self.cfg.vocab_size)
 
     # =========================================================================
     # serving

@@ -44,7 +44,10 @@ def test_import_leaves_jax_and_reference_out():
     for name in ("kernels.flash_attention.kernel", "kernels.flash_attention.ops",
                  "kernels.flash_attention.ref", "kernels.wis_dp.ops",
                  "checkpoint.store", "core.repartition", "service.engine",
-                 "serving.adapter", "launch.serve_auction"):
+                 "serving.adapter", "launch.serve_auction",
+                 "training.optimizer", "training.schedule", "training.trainer",
+                 "data.pipeline", "distributed.compression", "core.executor",
+                 "core.baselines", "launch.train"):
         assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
 
 
@@ -90,6 +93,12 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "recurrentgemma_9b", "--reduced",
                     "--attn-impl", "pallas"])
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "falcon_mamba_7b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(reduced("falcon_mamba_7b"), steps=1)
     assert resolve_device("cpu").type == "cpu"
 
 
