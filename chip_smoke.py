@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only wis       # phases 1, 2 (K1, K2) and 2e alone
     python3 chip_smoke.py --only service   # phases 1 and 6 alone
     python3 chip_smoke.py --only train     # phases 1 and 7 alone
+    python3 chip_smoke.py --only models    # phases 1, 2d and 8 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -39,7 +40,13 @@ Phases (any failure exits non-zero and prints no result):
    attention (1, 16, S, 256) on one kv head, window 2048, bfloat16, at
    S = 1024, 2500 and 4096; qwen3-14b's GQA widths (1, 40, 4096, 128) on 8
    kv heads; Sq = 128 against Sk = 384 (q_offset 256) and one non-causal
-   case, each in float32 and in bfloat16.  Each case prints the kernel it
+   case, each in float32 and in bfloat16; olmoe-1b-7b's 2048-token prefill
+   (1, 16, 2048, 128) MHA, granite-moe-3b-a800m's (1, 24, 2048, 64) on
+   8 kv heads, qwen1.5-4b's (1, 20, 2048, 128) MHA, starcoder2-15b's
+   (1, 48, 2048, 128) on 4 and llama3-405b's (1, 128, 2048, 128) on 8, and
+   phase 8's served shapes, whose keys run to max_seq past the prompt
+   (starcoder2 Sk 2064, granite Sk 2112, qwen3-14b 4096 on Sk 4224), causal,
+   bfloat16.  Each case prints the kernel it
    ran (``flash_attention_path``: the tensor cores for bfloat16 at D >= 64,
    else the CUDA cores), and the tensor-core cases are also held against
    ``mha_tiled_reference`` within 1e-2.  Each is timed beside its plain
@@ -136,7 +143,40 @@ Phases (any failure exits non-zero and prints no result):
    times, tokens/s and the peak memory printed) and profiles one more
    step by kernel name; 7d runs ``python -m repro_torch.launch.train
    --arch falcon_mamba_7b --reduced --steps 20`` on cuda and on cpu in
-   subprocesses: both exit 0 and their losses agree within 1e-4.
+   subprocesses: both exit 0 and their losses agree within 1e-4;
+8. the MoE family and the dense configs, each initialised on the card from
+   a seed in bfloat16 and served through ``ServingEngine`` (4 slots) once
+   with prefill attention through K4 and once through ``"auto"``: every
+   request must finish, K4 must launch once a layer and prefill (never
+   through auto), and where auto's top-1 margin exceeds twice the largest
+   gap between the two runs' prefill logits the first token must agree.
+   8a olmoe-1b-7b and 8b granite-moe-3b-a800m at full width and depth
+   serve 8 greedy requests (prompts of 2048, 1536, 1024, 512 tokens and 4
+   seeded in 64-512; 16 new tokens; max_seq 2112); the (token, choice)
+   pairs dropped by capacity in the 2048-token prefill are counted in
+   both runs and printed, not gated (bf16 attention outputs part on
+   router near-ties, so the runs route many choices apart); the K4
+   traffic is served once more (olmoe's under torch.profiler) and must
+   drop exactly as many as its first run; 8c qwen3-14b at full width and
+   depth (prompts of
+   4096, 3072, 2048, 1024 and 4 seeded in 128-2047; max_seq 4224), its
+   4096-token prefill timed again through K4 and auto as medians of three
+   in turns (printed, not gated); 8d qwen1.5-4b and starcoder2-15b at full
+   width and depth and llama3-405b at full width with 8 of its 126 layers
+   (59 GB in bfloat16) run one 2048-token prefill and 8 decode steps; 8e
+   the six configs reduced (float32) on the card through K4 must match the
+   host within 1e-4 over a prefill and 8 decode steps, the MoE configs
+   with the card's routing replayed on the host (the combine rounds the
+   gates to bfloat16, so a last-bit difference can move one by a bfloat16
+   step), and the card's routing held to the host's own choices on the
+   same inputs: slots equal to a plain count, other experts only on
+   near-ties, gates within 1e-6 (the gap under the host's own routing is
+   printed, not gated); 8f ``python -m
+   repro_torch.launch.serve --arch olmoe_1b_7b --attn-impl pallas`` serves
+   its 8 default requests on the card.  Each model is freed before the
+   next is drawn, and the peak memory printed.
+
+Every phase prints its wall time.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card; runs
@@ -643,7 +683,11 @@ def check_scan_kernel(torch, dev, k5, ref):
 
 #: (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): recurrentgemma's
 #: local attention at three prompt lengths (2500 does not tile), qwen3-14b's
-#: GQA widths, a cache longer than the queries, and a non-causal case
+#: GQA widths, a cache longer than the queries, a non-causal case; the
+#: 2048-token prefills of olmoe-1b-7b (MHA), granite-moe-3b-a800m (D = 64
+#: on 8 kv heads), qwen1.5-4b (MHA), starcoder2-15b (group 12) and
+#: llama3-405b (group 16); and phase 8's served shapes, whose keys run to
+#: max_seq past the prompt (starcoder2, granite and qwen3's longest)
 ATTN_CASES = (
     (1, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0),
     (1, 16, 1, 2500, 2500, 256, "bfloat16", True, 2048, 0),
@@ -653,6 +697,14 @@ ATTN_CASES = (
     (1, 8, 2, 1000, 1000, 128, "float32", False, None, 0),
     (2, 4, 2, 128, 384, 64, "bfloat16", True, None, 256),
     (1, 8, 2, 1000, 1000, 128, "bfloat16", False, None, 0),
+    (1, 16, 16, 2048, 2048, 128, "bfloat16", True, None, 0),
+    (1, 24, 8, 2048, 2048, 64, "bfloat16", True, None, 0),
+    (1, 20, 20, 2048, 2048, 128, "bfloat16", True, None, 0),
+    (1, 48, 4, 2048, 2048, 128, "bfloat16", True, None, 0),
+    (1, 128, 8, 2048, 2048, 128, "bfloat16", True, None, 0),
+    (1, 48, 4, 2048, 2064, 128, "bfloat16", True, None, 0),
+    (1, 24, 8, 2048, 2112, 64, "bfloat16", True, None, 0),
+    (1, 40, 8, 4096, 4224, 128, "bfloat16", True, None, 0),
 )
 ATTN_MAIN = ATTN_CASES[2]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
@@ -1150,10 +1202,12 @@ PHASES = ("prefill", "decode")
 
 
 def serve_requests(torch, dev, model, params, prompts, *, max_new: int,
-                   max_seq: int = 2048, attn_impl: str = "auto"):
+                   max_seq: int = 2048, attn_impl: str = "auto",
+                   cache_leaves: bool = True):
     """Serve ``prompts`` through ``ServingEngine`` (4 slots); returns the
     requests, host-clock timings of each prefill and each decode step, and
-    what each prefill returned (its last logits and its cache leaves).  Each model call runs inside a profiler range named
+    what each prefill returned (its last logits and, with ``cache_leaves``,
+    its cache leaves).  Each model call runs inside a profiler range named
     after its phase that starts and ends with a device synchronise, so
     every kernel it launched also ran inside the range."""
     from torch.profiler import record_function
@@ -1176,7 +1230,8 @@ def serve_requests(torch, dev, model, params, prompts, *, max_new: int,
             if not torch.isfinite(out[0]).all():
                 raise AssertionError(f"{kind} produced non-finite logits")
             if kind == "prefill":
-                prefills.append([out[0], *_leaves(out[1])])
+                prefills.append([out[0], *(_leaves(out[1]) if cache_leaves
+                                           else ())])
             return out
         return call
 
@@ -1281,25 +1336,8 @@ def serving_path(np, torch, dev, k5, card: str):
 
     # a small input held against the host: the reduced config on the card
     # (through K5) and on the CPU (plain versions), same params
-    small = reduced("falcon_mamba_7b")
-    host_params = Model(small).init(SEED, device="cpu")
-    toks = np.random.default_rng(SEED + 1).integers(
-        0, small.vocab_size, (2, 40)).astype(np.int32)
-    outs = {}
-    for where, p in (("card", _to(host_params, dev)), ("host", host_params)):
-        d = dev if where == "card" else torch.device("cpu")
-        m = Model(small)
-        tk = torch.from_numpy(toks).to(d)
-        logits, cache, _ = m.prefill(p, tk[:, :32], max_seq=64)
-        seq = [logits.float().cpu()]
-        for t in range(32, 40):
-            logits, cache = m.decode_step(p, tk[:, t], t, cache)
-            seq.append(logits.float().cpu())
-        outs[where] = torch.stack(seq)
-    worst = float((outs["card"] - outs["host"]).abs().max().item())
-    if not worst <= 1e-4:
-        raise AssertionError(f"reduced falcon-mamba: card and host logits differ "
-                             f"by {worst}")
+    worst = card_vs_host(np, torch, dev, reduced("falcon_mamba_7b"), SEED + 1,
+                         "auto")["gap"]
     log(f"reduced falcon-mamba: card (K5) and host logits agree, prefill + 8 "
         f"decode steps, max abs gap {worst:.3g} (tolerance 1e-4)")
     return {"launches": launches, "peak_gb": peak_gb, "kernel": kern_t,
@@ -1310,6 +1348,164 @@ def serving_path(np, torch, dev, k5, card: str):
 # ---------------------------------------------------------------------------
 # Phase 5: recurrentgemma-9b serving through K4 and K5
 # ---------------------------------------------------------------------------
+
+
+class RouteRecorder:
+    """While entered, records every MoE routing (``moe.route``, a call a
+    layer) of ``tokens`` tokens in all, or of any size when None: the
+    chosen experts, gates, slots, kept choices and capacity, as the tensors
+    of the call's device, and with ``probs`` the router probabilities
+    (G, g, E) in float32.  With ``replay`` (another recorder's ``calls``)
+    each call's experts, gates, slots and kept choices are replaced by
+    that recorder's call of the same index."""
+
+    FIELDS = ("expert", "gate", "slot", "keep")
+
+    def __init__(self, tokens=None, *, probs: bool = False, replay=None):
+        self.tokens, self.probs, self.replay = tokens, probs, replay
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.route, self.moe = moe.route, moe
+
+        def spy(xt, router, **kw):
+            r = self.route(xt, router, **kw)
+            if self.tokens is not None and xt.shape[0] * xt.shape[1] != self.tokens:
+                return r
+            call = {k: getattr(r, k) for k in self.FIELDS}
+            call["capacity"] = r.capacity
+            if self.probs:
+                call["probs"] = torch.softmax(xt.float() @ router.float(), dim=-1)
+            if self.replay is not None:
+                c = self.replay[len(self.calls)]
+                r = r._replace(**{k: c[k].to(xt.device) for k in self.FIELDS})
+            self.calls.append(call)
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def host_calls(self) -> list:
+        return [{k: v.cpu() if hasattr(v, "cpu") else v for k, v in c.items()}
+                for c in self.calls]
+
+    def total(self) -> int:
+        """(token, choice) pairs dropped by capacity, over the calls."""
+        return int(sum(int((~c["keep"]).sum()) for c in self.calls))
+
+    def apart(self, other: "RouteRecorder") -> int:
+        """(token, choice) pairs routed to another expert in ``other``."""
+        return int(sum(int((a["expert"] != b["expert"]).sum())
+                       for a, b in zip(self.calls, other.calls)))
+
+
+def serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts, *,
+                      max_new: int, max_seq: int, card: str,
+                      drops_at: int = 0, k5=None) -> dict:
+    """The traffic served once with prefill attention through K4 and once
+    through "auto": every request finishes, K4 launches once an attention
+    layer and prefill on one shape a prompt (never through auto), K5 (when
+    given) once a recurrent layer and prefill in both runs, and the
+    first-token gate holds.  For MoE, the (token, choice) pairs dropped by
+    capacity in the ``drops_at``-token prefill are counted in both runs and
+    printed, not gated: bf16 attention outputs that part between K4 and
+    auto move router near-ties, so the two runs route many choices apart
+    (``moe_serving`` gates the K4 run's drops against a second K4 run)."""
+    from repro_torch.models import Model
+
+    kinds = cfg.superblock * cfg.n_super + cfg.superblock[:cfg.n_tail]
+    n_attn = sum(kind in ("attn", "moe") for kind in kinds)
+    runs = {}
+    for impl in ("pallas", "auto"):
+        k4.LAUNCHES["flash_attention"] = 0
+        k4.SHAPES.clear()
+        if k5 is not None:
+            k5.LAUNCHES["linear_scan"] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with RouteRecorder(drops_at) as drops:
+            reqs, t, pre = serve_requests(
+                torch, dev, Model(cfg), params, prompts, max_new=max_new,
+                max_seq=max_seq, attn_impl=impl, cache_leaves=False)
+        runs[impl] = {"reqs": reqs, "t": t,
+                      "logits": [x[0][0].float() for x in pre],
+                      "k4": k4.LAUNCHES["flash_attention"],
+                      "k4_shapes": dict(k4.SHAPES),
+                      "k5": None if k5 is None else k5.LAUNCHES["linear_scan"],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "drops": drops}
+        del pre
+    pal, auto = runs["pallas"], runs["auto"]
+    n_tok = sum(len(r.output) for r in pal["reqs"])
+    for impl, run in runs.items():
+        t = run["t"]
+        pre = [x * 1e3 for x in t["prefill"]]
+        dec = [x * 1e3 for x in t["decode"]]
+        log(f"{cfg.name} serving, attention {impl} [{card}]: {len(prompts)} "
+            f"requests, {n_tok} tokens in {t['wall_s']:.3f} s = "
+            f"{n_tok / t['wall_s']:.2f} tokens/s; prefill ms per request "
+            f"{[round(x, 2) for x in pre]} (prompt lengths {lens}); decode "
+            f"{len(dec)} steps, median {statistics.median(dec):.3f} ms, mean "
+            f"{statistics.mean(dec):.3f} ms; peak memory {run['peak_gb']:.3f} "
+            f"GB; K4 launches {run['k4']}"
+            + ("" if k5 is None else f", K5 launches {run['k5']}"))
+    log(f"  K4 shapes (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): "
+        f"{pal['k4_shapes']}")
+    for impl, run in runs.items():
+        bad = [r.request_id for r in run["reqs"]
+               if not r.done or len(r.output) != max_new]
+        if bad:
+            raise AssertionError(f"{cfg.name} {impl} run left requests "
+                                 f"unfinished: {bad}")
+        if any(not 0 <= tok < cfg.padded_vocab for r in run["reqs"]
+               for tok in r.output):
+            raise AssertionError(f"{cfg.name} {impl} run emitted a token "
+                                 "outside the vocab")
+        if len(run["logits"]) != len(prompts):
+            raise AssertionError(f"{cfg.name} {impl} run made "
+                                 f"{len(run['logits'])} prefills")
+        if k5 is not None and run["k5"] != (len(kinds) - n_attn) * len(prompts):
+            raise AssertionError(f"{cfg.name} {impl} run launched K5 "
+                                 f"{run['k5']} times, expected "
+                                 f"{len(kinds) - n_attn} x {len(prompts)}")
+    if auto["k4"]:
+        raise AssertionError(f"{cfg.name}: the auto-attention run launched K4")
+    if pal["k4"] != n_attn * len(prompts) or \
+            len(pal["k4_shapes"]) != len(set(lens)):
+        raise AssertionError(f"{cfg.name}: K4 launched {pal['k4']} times on "
+                             f"{len(pal['k4_shapes'])} shapes, expected "
+                             f"{n_attn} x {len(prompts)} on {len(set(lens))}")
+    worst, gated, later_same, later = first_token_gate(pal, auto, lens)
+    drops = None
+    if drops_at:
+        drops = {impl: run["drops"].total() for impl, run in runs.items()}
+        apart = pal["drops"].apart(auto["drops"])
+        n_choices = drops_at * cfg.top_k * cfg.n_layers
+        log(f"{cfg.name}: (token, choice) pairs dropped by capacity in the "
+            f"{drops_at}-token prefill, summed over {cfg.n_layers} layers: "
+            f"{drops['pallas']} through K4, {drops['auto']} through auto, of "
+            f"{n_choices}; {apart} choices routed to other experts in the two "
+            "runs (bf16 attention outputs part on router near-ties); not gated")
+    out = {"prompt_lengths": lens, "tokens": n_tok, "k4_launches": pal["k4"],
+           "k5_launches": pal["k5"], "max_logit_gap": worst,
+           "first_token_gated": gated, "later_tokens_equal": [later_same, later],
+           "drops": drops}
+    for impl, run in runs.items():
+        t = run["t"]
+        dec = [x * 1e3 for x in t["decode"]]
+        out[impl] = {"wall_s": t["wall_s"],
+                     "prefill_ms": [x * 1e3 for x in t["prefill"]],
+                     "decode_ms_median": statistics.median(dec),
+                     "decode_ms_mean": statistics.mean(dec),
+                     "peak_gb": run["peak_gb"]}
+    out["timed"] = pal["t"]
+    return out
 
 
 def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
@@ -1347,96 +1543,15 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
         Model(cfg).prefill(params, warm, impl=impl)
     torch.cuda.synchronize()
 
-    runs = {}
-    for impl in ("pallas", "auto"):
-        k4.LAUNCHES["flash_attention"] = 0
-        k4.SHAPES.clear()
-        k5.LAUNCHES["linear_scan"] = 0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reqs, t, pre = serve_requests(torch, dev, Model(cfg), params, prompts,
-                                      max_new=max_new, max_seq=max_seq,
-                                      attn_impl=impl)
-        runs[impl] = {"reqs": reqs, "t": t,
-                      "logits": [x[0][0].float() for x in pre],
-                      "k4": k4.LAUNCHES["flash_attention"],
-                      "k4_shapes": dict(k4.SHAPES),
-                      "k5": k5.LAUNCHES["linear_scan"],
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    pal, auto = runs["pallas"], runs["auto"]
-
-    for impl, run in runs.items():
-        bad = [r.request_id for r in run["reqs"]
-               if not r.done or len(r.output) != max_new]
-        if bad:
-            raise AssertionError(f"{impl} run left requests unfinished: {bad}")
-        if any(not 0 <= tok < cfg.padded_vocab for r in run["reqs"] for tok in r.output):
-            raise AssertionError(f"{impl} run emitted a token outside the vocab")
-        if len(run["logits"]) != len(prompts):
-            raise AssertionError(f"{impl} run made {len(run['logits'])} prefills")
-        if run["k5"] != n_rglru * len(prompts):
-            raise AssertionError(f"{impl} run launched K5 {run['k5']} times, "
-                                 f"expected {n_rglru} x {len(prompts)}")
-    if auto["k4"]:
-        raise AssertionError("the auto-attention run launched K4")
-    if pal["k4"] != n_attn * len(prompts) or len(pal["k4_shapes"]) != len(prompts):
-        raise AssertionError(f"K4 launched {pal['k4']} times on "
-                             f"{len(pal['k4_shapes'])} shapes, expected "
-                             f"{n_attn} x {len(prompts)} on {len(prompts)}")
-
-    gated = later = later_same = 0
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(pal["logits"], auto["logits"])):
-        gap = float((a - b).abs().max().item())
-        worst = max(worst, gap)
-        top2 = torch.topk(b, 2).values
-        margin = float((top2[0] - top2[1]).item())
-        ra, rb = pal["reqs"][i], auto["reqs"][i]
-        if margin > 2 * gap:
-            gated += 1
-            if ra.output[0] != rb.output[0]:
-                raise AssertionError(
-                    f"r{i}: first token {ra.output[0]} through K4, {rb.output[0]} "
-                    f"through auto, though the auto margin {margin} exceeds "
-                    f"twice the logit gap {gap}")
-        same = sum(x == y for x, y in zip(ra.output[1:], rb.output[1:]))
-        later += len(ra.output) - 1
-        later_same += same
-        log(f"  r{i} prompt {lens[i]}: prefill logit gap {gap:.4g}, auto "
-            f"top-1 margin {margin:.4g}, first token {ra.output[0]} / "
-            f"{rb.output[0]}, later tokens equal {same}/{len(ra.output) - 1}")
-    log(f"K4 vs auto: largest prefill logit gap {worst:.4g}; first token "
-        f"gated on {gated}/{len(prompts)} requests (margin > 2 x gap), all "
-        f"equal; later tokens equal {later_same}/{later} (not gated)")
-
-    n_tok = sum(len(r.output) for r in pal["reqs"])
-    out = {"prompt_lengths": lens, "tokens": n_tok, "k4_launches": pal["k4"],
-           "k5_launches": pal["k5"], "max_logit_gap": worst,
-           "first_token_gated": gated, "later_tokens_equal": [later_same, later]}
-    for impl, run in runs.items():
-        t = run["t"]
-        pre = [x * 1e3 for x in t["prefill"]]
-        dec = [x * 1e3 for x in t["decode"]]
-        log(f"recurrentgemma-9b serving, attention {impl} [{card}]: "
-            f"{len(prompts)} requests, {n_tok} tokens in {t['wall_s']:.3f} s = "
-            f"{n_tok / t['wall_s']:.2f} tokens/s; prefill ms per request "
-            f"{[round(x, 2) for x in pre]} (prompt lengths {lens}); decode "
-            f"{len(dec)} steps, median {statistics.median(dec):.3f} ms, mean "
-            f"{statistics.mean(dec):.3f} ms; peak memory {run['peak_gb']:.3f} GB; "
-            f"K4 launches {run['k4']}, K5 launches {run['k5']}")
-        out[impl] = {"wall_s": t["wall_s"], "prefill_ms": pre,
-                     "decode_ms_median": statistics.median(dec),
-                     "decode_ms_mean": statistics.mean(dec),
-                     "peak_gb": run["peak_gb"]}
-    log(f"  K4 shapes (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): "
-        f"{pal['k4_shapes']}")
+    out = serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts,
+                            max_new=max_new, max_seq=max_seq, card=card, k5=k5)
     out["device_busy"] = serving_profile(
-        torch, dev, Model(cfg), params, prompts, max_new, pal["t"], card,
-        max_seq=max_seq, attn_impl="pallas")
+        torch, dev, Model(cfg), params, prompts, max_new, out.pop("timed"),
+        card, max_seq=max_seq, attn_impl="pallas")
     out["longest_prefill_ms"] = longest_prefill_ms(
         torch, dev, Model(cfg), params, prompts[lens.index(max(lens))], max_seq)
     k4_prefill_gates(out, lens)
-    del params, runs, pal, auto
+    del params
     torch.cuda.empty_cache()
 
     # the launcher a user runs, on the card at full width (its own params
@@ -1458,35 +1573,104 @@ def hybrid_serving_path(np, torch, dev, k4, k5, card: str):
     # a small input held against the host: the reduced config (window 16)
     # on the card through K4 and K5, on the CPU through the plain versions
     small = reduced("recurrentgemma_9b")
-    host_params = Model(small).init(SEED, device="cpu")
-    toks = np.random.default_rng(SEED + 2).integers(
-        0, small.vocab_size, (2, 40)).astype(np.int32)
-    outs = {}
     k4.LAUNCHES["flash_attention"] = 0
-    for where, p in (("card", _to(host_params, dev)), ("host", host_params)):
-        d = dev if where == "card" else torch.device("cpu")
-        m = Model(small)
-        tk = torch.from_numpy(toks).to(d)
-        logits, cache, _ = m.prefill(p, tk[:, :32], impl="pallas", max_seq=64)
-        seq = [logits.float().cpu()]
-        for t in range(32, 40):
-            logits, cache = m.decode_step(p, tk[:, t], t, cache)
-            seq.append(logits.float().cpu())
-        outs[where] = torch.stack(seq)
+    worst = card_vs_host(np, torch, dev, small, SEED + 2, "pallas")["gap"]
     small_attn = small.n_super * small.superblock.count("attn")
     if k4.LAUNCHES["flash_attention"] != small_attn:
         raise AssertionError(f"reduced prefill on the card launched K4 "
                              f"{k4.LAUNCHES['flash_attention']} times, expected "
                              f"{small_attn}")
-    worst = float((outs["card"] - outs["host"]).abs().max().item())
-    if not worst <= 1e-4:
-        raise AssertionError(f"reduced recurrentgemma: card and host logits "
-                             f"differ by {worst}")
     log(f"reduced recurrentgemma: card (K4, K5) and host (plain versions) "
         f"logits agree, prompt 32 past window {small.window}, prefill + 8 "
         f"decode steps, max abs gap {worst:.3g} (tolerance 1e-4)")
     out["reduced_gap"] = worst
     return out
+
+
+def first_token_gate(pal: dict, auto: dict, lens) -> tuple:
+    """Where the auto run's top-1 margin exceeds twice the largest gap
+    between the two runs' prefill logits, the first token through K4 must
+    be auto's.  Returns the largest gap, the requests gated, the later
+    tokens equal and the later tokens, which are printed, not gated."""
+    gated = later = later_same = 0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(pal["logits"], auto["logits"])):
+        gap = float((a - b).abs().max().item())
+        worst = max(worst, gap)
+        top2 = b.topk(2).values
+        margin = float((top2[0] - top2[1]).item())
+        ra, rb = pal["reqs"][i], auto["reqs"][i]
+        if margin > 2 * gap:
+            gated += 1
+            if ra.output[0] != rb.output[0]:
+                raise AssertionError(
+                    f"r{i}: first token {ra.output[0]} through K4, {rb.output[0]} "
+                    f"through auto, though the auto margin {margin} exceeds "
+                    f"twice the logit gap {gap}")
+        same = sum(x == y for x, y in zip(ra.output[1:], rb.output[1:]))
+        later += len(ra.output) - 1
+        later_same += same
+        log(f"  r{i} prompt {lens[i]}: prefill logit gap {gap:.4g}, auto "
+            f"top-1 margin {margin:.4g}, first token {ra.output[0]} / "
+            f"{rb.output[0]}, later tokens equal {same}/{len(ra.output) - 1}")
+    log(f"K4 vs auto: largest prefill logit gap {worst:.4g}; first token "
+        f"gated on {gated}/{len(lens)} requests (margin > 2 x gap), all "
+        f"equal; later tokens equal {later_same}/{later} (not gated)")
+    return worst, gated, later_same, later
+
+
+#: largest gap between a reduced float32 config's logits on the card and on
+#: the host, over a prefill and 8 decode steps
+REDUCED_TOL = 1e-4
+
+
+def card_vs_host(np, torch, dev, cfg, seed: int, impl: str) -> dict:
+    """A reduced float32 config on the card and on the host, the same params
+    drawn on the host from SEED: a 32-token prefill of two rows (attention
+    ``impl``) and 8 decode steps.  Returns the largest logit gap ("gap")
+    and, in the ``moe`` family, the routings (a call a layer) of the card
+    and of the host's replaying run, with the router probabilities.
+
+    In the ``moe`` family the host runs twice: with its own routing, whose
+    gap is returned as "own_gap" (printed, not gated), and with the card's
+    routing replayed call by call (experts, slots, kept choices, gates),
+    whose gap is "gap".  The combine rounds the gates to bfloat16 as the
+    reference does, so a last-bit float32 difference between cuBLAS and
+    the host can move a gate by a bfloat16 step, and a near-tie can move a
+    choice (ROADMAP.md §3); given the same routing, the rest of the model
+    must agree.  "gap" must be within REDUCED_TOL."""
+    from repro_torch.models import Model
+
+    host_params = Model(cfg).init(SEED, device="cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+
+    def run(params, d, replay=None):
+        with RouteRecorder(probs=True, replay=replay) as rec:
+            m = Model(cfg)
+            tk = torch.from_numpy(toks).to(d)
+            logits, cache, _ = m.prefill(params, tk[:, :32], impl=impl,
+                                         max_seq=64)
+            seq = [logits.float().cpu()]
+            for t in range(32, 40):
+                logits, cache = m.decode_step(params, tk[:, t], t, cache)
+                seq.append(logits.float().cpu())
+        return torch.stack(seq), rec.host_calls()
+
+    cpu = torch.device("cpu")
+    card, card_calls = run(_to(host_params, dev), dev)
+    host, host_calls = run(host_params, cpu)
+    own_gap = gap = float((card - host).abs().max().item())
+    if card_calls:
+        # the host's own choices in this run, on inputs that track the
+        # card's, are what routing_gate holds the card's to
+        replayed, host_calls = run(host_params, cpu, replay=card_calls)
+        gap = float((card - replayed).abs().max().item())
+    if not gap <= REDUCED_TOL:
+        raise AssertionError(f"reduced {cfg.name}: card and host logits differ "
+                             f"by {gap}")
+    return {"gap": gap, "own_gap": own_gap,
+            "routes": {"card": card_calls, "host": host_calls}}
 
 
 #: K4's largest share of the K4 run's prefill device time
@@ -1558,7 +1742,9 @@ def kernel_group(name: str) -> str:
         return "K4"
     if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "gemm"
-    for group, words in (("exp", ("exp_kernel",)),
+    for group, words in (("index", ("index",)),
+                         ("sort, scan", ("sort", "scan")),
+                         ("exp", ("exp_kernel",)),
                          ("mul", ("mulfunctor",)),
                          ("add", ("addfunctor", "functor_add",
                                   "functoronself_add", "functoronother_add")),
@@ -1586,7 +1772,7 @@ def kernel_label(name: str) -> str:
 
 
 def serving_profile(torch, dev, model, params, prompts, max_new: int,
-                    timed: dict, card: str, **serve_kw):
+                    timed: dict, card: str, *, top: int = 8, **serve_kw):
     """Where serving's time goes: the same requests once more through the
     kernels under torch.profiler (``serve_kw`` as ``serve_requests`` takes
     them).  Each device activity is put in the ``prefill`` or ``decode``
@@ -1602,10 +1788,9 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reqs, t, _ = serve_requests(torch, dev, model, params, prompts,
                                     max_new=max_new, **serve_kw)
-    events = prof.events()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in events if e.device_type == cpu and e.name in PHASES)
+    events = profiled_events(torch, prof)
+    ranges = sorted((t0, t1, name) for name, on_card, t0, t1 in events
+                    if not on_card and name in PHASES)
     want = len(t["prefill"]) + len(t["decode"])
     if len(ranges) != want:
         log(f"serving device share: not measured (the profiler kept "
@@ -1614,17 +1799,15 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
     starts = [r[0] for r in ranges]
     seconds = {ph: {} for ph in PHASES + ("between",)}
     names = {ph: {} for ph in PHASES + ("between",)}
-    for e in events:
-        if (e.device_type != cuda or e.name in PHASES
-                or getattr(e, "is_user_annotation", False)):
+    for name, on_card, t0, t1 in events:
+        if not on_card or name in PHASES:
             continue
-        t0, t1 = e.time_range.start, e.time_range.end
         i = bisect.bisect_right(starts, (t0 + t1) / 2) - 1
         ph = ranges[i][2] if i >= 0 and (t0 + t1) / 2 <= ranges[i][1] else "between"
-        s = (t1 - t0) / 1e6
-        g = kernel_group(e.name)
+        s = (t1 - t0) / 1e9
+        g = kernel_group(name)
         seconds[ph][g] = seconds[ph].get(g, 0.0) + s
-        label = kernel_label(e.name)
+        label = kernel_label(name)
         names[ph][label] = names[ph].get(label, 0.0) + s
     busy = {ph: sum(v.values()) for ph, v in seconds.items()}
     if sum(busy.values()) == 0.0:
@@ -1638,7 +1821,7 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
     for ph in PHASES:
         host, prof_host = sum(timed[ph]), sum(t[ph])
         n = len(t[ph])
-        top = sorted(names[ph].items(), key=lambda kv: -kv[1])[:8]
+        top_names = sorted(names[ph].items(), key=lambda kv: -kv[1])[:top]
         log(f"  {ph}: {n} calls, host clock {host:.4f} s unprofiled "
             f"({1e3 * host / n:.3f} ms a call), {prof_host:.4f} s profiled; "
             f"device busy {busy[ph]:.4f} s ({1e3 * busy[ph] / n:.3f} ms a call, "
@@ -1647,7 +1830,7 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
             + ", ".join(f"{g} {v:.4f} s" for g, v in sorted(
                 seconds[ph].items(), key=lambda kv: -kv[1]))
             + "; top kernels: "
-            + ", ".join(f"{k} {v:.4f} s" for k, v in top))
+            + ", ".join(f"{k} {v:.4f} s" for k, v in top_names))
         out[ph] = {"host_s": host, "profiled_host_s": prof_host, "calls": n}
     return out
 
@@ -1666,18 +1849,29 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def profiled_events(torch, prof) -> list:
+    """(name, on the card, start ns, end ns) of every activity ``prof`` kept,
+    read from its raw results (``prof.events()`` builds a Python tree over
+    them first, which took most of a minute for one served model's
+    traffic); the device's copies of record_function ranges left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        on_card = e.device_type() == cuda
+        if on_card and e.is_user_annotation():
+            continue
+        out.append((e.name(), on_card, e.start_ns(), e.end_ns()))
+    return out
+
+
 def device_seconds(torch, prof, names, group_of) -> dict:
     """Device seconds by group (``group_of(kernel name)`` picks one of
     ``names``) from device activities only: a CPU op's self device time
     repeats the time of the kernels and copies it launched."""
     groups = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        groups[group_of(e.key)] += us / 1e6
+    for name, on_card, t0, t1 in profiled_events(torch, prof):
+        if on_card:
+            groups[group_of(name)] += (t1 - t0) / 1e9
     return groups
 
 
@@ -2152,15 +2346,14 @@ def train_profile(torch, run, step: int, card: str) -> dict:
         run.run_steps(step, 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
     groups, names = {}, {}
-    for e in prof.events():
-        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+    for name, on_card, t0, t1 in profiled_events(torch, prof):
+        if not on_card:
             continue
-        sec = (e.time_range.end - e.time_range.start) / 1e6
-        g = kernel_group(e.name)
+        sec = (t1 - t0) / 1e9
+        g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + sec
-        label = kernel_label(e.name)
+        label = kernel_label(name)
         names[label] = names.get(label, 0.0) + sec
     busy = sum(groups.values())
     if busy == 0.0:
@@ -2302,13 +2495,349 @@ def training_path(torch, dev, k5, k5_ref, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE family and the dense configs, served through K4
+# ---------------------------------------------------------------------------
+
+#: the configs phase 8 adds, each also held reduced on the card to the host
+NEW_ARCHS = ("olmoe_1b_7b", "granite_moe_3b_a800m", "qwen3_14b", "qwen1_5_4b",
+             "starcoder2_15b", "llama3_405b")
+#: llama3-405b's layers served at full width: 8 of its 126 fit one card
+#: (3.19 B params a layer and 4.2 B of embeddings, 59 GB in bf16)
+LLAMA_LAYERS = 8
+
+
+def prompt_traffic(np, vocab: int, fixed, lo: int, hi: int, seed: int):
+    """``fixed`` prompt lengths and 4 seeded ones in [lo, hi], longest first
+    among the seeded; random token ids below ``vocab``."""
+    rng = np.random.default_rng(seed)
+    lens = list(fixed) + sorted(
+        (int(n) for n in rng.choice(np.arange(lo, hi + 1), 4, replace=False)),
+        reverse=True)
+    return lens, [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def free_card(torch, what: str) -> None:
+    """Collect what was dropped, return the cached blocks and print the
+    peak memory since the last reset."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{what} freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB still "
+        f"allocated; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def init_model(torch, dev, cfg, what: str):
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    params = Model(cfg).init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    active = (f" ({cfg.active_param_count()} active a token)"
+              if cfg.family == "moe" else "")
+    log(f"{what}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"q heads on {cfg.n_kv_heads} kv heads, head dim {cfg.hd}, "
+        f"{str(cfg.dtype)[6:]}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}); {n} params{active} (param_count "
+        f"{cfg.param_count()}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def moe_serving(np, torch, dev, k4, arch: str, seed: int, card: str, *,
+                profile: bool) -> dict:
+    """8a / 8b: a full-width MoE config through K4 and auto, its K4 traffic
+    served once more (under torch.profiler with ``profile``) to the same
+    drops."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = get(arch)
+    params = init_model(torch, dev, cfg, f"{cfg.name} full width and depth")
+    lens, prompts = prompt_traffic(np, cfg.vocab_size, (2048, 1536, 1024, 512),
+                                   64, 512, seed)
+    max_new, max_seq = 16, 2112
+    warm = torch.from_numpy(prompts[0][:64]).to(dev)[None]
+    for impl in ("pallas", "auto"):  # load cuBLAS and the kernels, untimed
+        Model(cfg).prefill(params, warm, impl=impl)
+    torch.cuda.synchronize()
+    out = serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts,
+                            max_new=max_new, max_seq=max_seq, card=card,
+                            drops_at=2048)
+    t1 = time.perf_counter()
+    timed = out.pop("timed")
+    with RouteRecorder(2048) as again:  # the same K4 traffic once more
+        if profile:
+            out["device_busy"] = serving_profile(
+                torch, dev, Model(cfg), params, prompts, max_new, timed,
+                card, max_seq=max_seq, attn_impl="pallas", top=14)
+        else:
+            serve_requests(torch, dev, Model(cfg), params, prompts,
+                           max_new=max_new, max_seq=max_seq,
+                           attn_impl="pallas", cache_leaves=False)
+    log(f"{cfg.name}: served {'under torch.profiler' if profile else 'again'}"
+        f" in {time.perf_counter() - t1:.1f} s wall, its processing included")
+    if again.total() != out["drops"]["pallas"]:
+        raise AssertionError(f"{cfg.name}: the K4 traffic served again dropped "
+                             f"{again.total()} choices, the first time "
+                             f"{out['drops']['pallas']}")
+    log(f"{cfg.name}: the K4 traffic served again drops the same "
+        f"{again.total()} choices")
+    del params
+    free_card(torch, cfg.name)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def qwen3_serving(np, torch, dev, k4, card: str) -> dict:
+    """8c: qwen3-14b at full width and depth through K4 and auto; its
+    4096-token prefill timed again in turns (printed, not gated: K4 loses
+    to SDPA at these GQA widths)."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = get("qwen3_14b")
+    params = init_model(torch, dev, cfg, "qwen3-14b full width and depth")
+    lens, prompts = prompt_traffic(np, cfg.vocab_size, (4096, 3072, 2048, 1024),
+                                   128, 2047, SEED + 82)
+    max_new, max_seq = 16, 4224
+    warm = torch.from_numpy(prompts[0][:64]).to(dev)[None]
+    for impl in ("pallas", "auto"):
+        Model(cfg).prefill(params, warm, impl=impl)
+    torch.cuda.synchronize()
+    out = serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts,
+                            max_new=max_new, max_seq=max_seq, card=card)
+    out.pop("timed")
+    out["longest_prefill_ms"] = longest_prefill_ms(
+        torch, dev, Model(cfg), params, prompts[0], max_seq)
+    med = out["longest_prefill_ms"]["median"]
+    log(f"qwen3-14b 4096-token prefill [{card}]: serving run "
+        f"{out['pallas']['prefill_ms'][0]:.2f} ms through K4, "
+        f"{out['auto']['prefill_ms'][0]:.2f} ms through auto; medians of 3 "
+        f"in turns {med['pallas']:.2f} / {med['auto']:.2f} ms (samples "
+        f"{out['longest_prefill_ms']['samples']}); not gated")
+    del params
+    free_card(torch, cfg.name)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dense_serving(np, torch, dev, k4, card: str) -> dict:
+    """8d: qwen1.5-4b and starcoder2-15b at full width and depth, and
+    llama3-405b at full width with LLAMA_LAYERS layers: one 2048-token
+    prefill and 8 decode steps each, through K4 and through auto."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    out = {}
+    for arch in ("qwen1_5_4b", "starcoder2_15b", "llama3_405b"):
+        t0 = time.perf_counter()
+        cfg = get(arch)
+        what = f"{cfg.name} full width and depth"
+        if arch == "llama3_405b":
+            what = (f"{cfg.name} full width, {LLAMA_LAYERS} of its "
+                    f"{cfg.n_layers} layers")
+            cfg = cfg.replace(n_layers=LLAMA_LAYERS)
+        params = init_model(torch, dev, cfg, what)
+        lens, prompts = [2048], [np.random.default_rng(SEED + 83).integers(
+            0, cfg.vocab_size, 2048).astype(np.int32)]
+        warm = torch.from_numpy(prompts[0][:64]).to(dev)[None]
+        for impl in ("pallas", "auto"):
+            Model(cfg).prefill(params, warm, impl=impl)
+        torch.cuda.synchronize()
+        res = serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts,
+                                max_new=9, max_seq=2064, card=card)
+        res.pop("timed")
+        del params
+        free_card(torch, cfg.name)
+        res["wall_s"] = time.perf_counter() - t0
+        out[arch] = res
+    return out
+
+
+#: a card choice that differs from the host's must be a near-tie: the
+#: host's router probabilities of the two experts within this much
+#: (the card's and the host's inputs to the router differ by ~1e-6)
+ROUTE_TIE_TOL = 1e-6
+#: the card's gates against the host's where both chose the same experts
+ROUTE_GATE_TOL = 1e-6
+
+
+def plain_slots(np, expert, capacity: int):
+    """Each (group, token, choice)'s slot in its expert's queue, counted
+    one by one in the reference's priority (choice-major, then token
+    order), and whether it is below ``capacity``."""
+    n_groups, g, k = expert.shape
+    slot = np.empty_like(expert)
+    for grp in range(n_groups):
+        taken = {}
+        for j in range(k):
+            for i in range(g):
+                e = int(expert[grp, i, j])
+                slot[grp, i, j] = taken.get(e, 0)
+                taken[e] = slot[grp, i, j] + 1
+    return slot, slot < capacity
+
+
+def routing_gate(np, torch, name: str, routes: dict) -> dict:
+    """The card's routing against the host's, call by call.  Gated: each
+    card slot and kept choice equals a one-by-one count over the card's
+    experts; where a token's experts differ, every rank's two experts lie
+    within ROUTE_TIE_TOL in the host's router probabilities; where they
+    agree, the gates lie within ROUTE_GATE_TOL.  Printed: the tokens moved
+    and their smallest gap, the gates that round to another bfloat16 and
+    their largest float32 gap, and the largest card/host probability gap."""
+    moved = flips = 0
+    tie_gap = flip_gap = None
+    prob_gap = gate_gap = 0.0
+    for n, (c, h) in enumerate(zip(routes["card"], routes["host"])):
+        where = f"{name}, routing call {n}"
+        slot, keep = plain_slots(np, c["expert"].numpy(), c["capacity"])
+        if c["capacity"] != h["capacity"] or not (
+                np.array_equal(c["slot"].numpy(), slot)
+                and np.array_equal(c["keep"].numpy(), keep)):
+            raise AssertionError(f"{where}: the card's slots or kept choices "
+                                 "are not its experts' queue positions")
+        prob_gap = max(prob_gap, float((c["probs"] - h["probs"]).abs().max()))
+        apart = (c["expert"] != h["expert"]).any(dim=-1)
+        moved += int(apart.sum())
+        if apart.any():
+            pc = h["probs"].gather(-1, c["expert"])[apart]
+            ph = h["probs"].gather(-1, h["expert"])[apart]
+            g = float((pc - ph).abs().max())
+            if not g <= ROUTE_TIE_TOL:
+                raise AssertionError(
+                    f"{where}: {int(apart.sum())} tokens routed to other "
+                    f"experts on the card, host probabilities {g} apart "
+                    f"(near-tie limit {ROUTE_TIE_TOL})")
+            tie_gap = g if tie_gap is None else max(tie_gap, g)
+        same = ~apart[..., None].expand_as(c["gate"])
+        gate_gap = max(gate_gap, float(
+            torch.where(same, (c["gate"] - h["gate"]).abs(), 0.0).max()))
+        bf16 = torch.bfloat16
+        flip = same & (c["gate"].to(bf16) != h["gate"].to(bf16))
+        flips += int(flip.sum())
+        if flip.any():
+            g = float((c["gate"] - h["gate"]).abs()[flip].max())
+            flip_gap = g if flip_gap is None else max(flip_gap, g)
+    if not gate_gap <= ROUTE_GATE_TOL:
+        raise AssertionError(f"{name}: the card's gates part from the host's "
+                             f"by {gate_gap} (limit {ROUTE_GATE_TOL})")
+    return {"tokens_moved": moved, "largest_tie_gap": tie_gap,
+            "bf16_gate_flips": flips, "largest_flip_gap": flip_gap,
+            "largest_gate_gap": gate_gap, "largest_prob_gap": prob_gap}
+
+
+def reduced_on_card(np, torch, dev, k4) -> dict:
+    """8e: the six configs reduced (float32) on the card through K4 against
+    the host, a prefill and 8 decode steps within REDUCED_TOL (for MoE with
+    the card's routing replayed on the host, ``card_vs_host``), and for MoE
+    the card's routing held to the host's by ``routing_gate`` (cuBLAS and
+    the host's float32 products may part in their last bits, which moves a
+    choice only on a near-tie)."""
+    from repro_torch.configs import reduced
+
+    out = {}
+    for n, arch in enumerate(NEW_ARCHS):
+        cfg = reduced(arch)
+        k4.LAUNCHES["flash_attention"] = 0
+        res = card_vs_host(np, torch, dev, cfg, SEED + 90 + n, "pallas")
+        if k4.LAUNCHES["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"reduced {arch}: K4 launched "
+                                 f"{k4.LAUNCHES['flash_attention']} times, "
+                                 f"expected {cfg.n_layers}")
+        row = {"gap": res["gap"]}
+        txt = ""
+        if cfg.family == "moe":
+            row.update(routing_gate(np, torch, cfg.name, res["routes"]),
+                       own_gap=res["own_gap"])
+            txt = (f" with the card's routing replayed on the host; with the "
+                   f"host's own {res['own_gap']:.3g}; of "
+                   f"{len(res['routes']['host'])} routing calls, slots and "
+                   f"kept choices equal to a plain count on every call, "
+                   f"{row['tokens_moved']} tokens routed to other experts on "
+                   f"the card (largest host-probability gap among them "
+                   f"{row['largest_tie_gap']}, limit {ROUTE_TIE_TOL}), gates "
+                   f"within {row['largest_gate_gap']:.3g} of the host's (limit "
+                   f"{ROUTE_GATE_TOL}), {row['bf16_gate_flips']} of them "
+                   f"rounded to another bfloat16 (largest float32 gap "
+                   f"{row['largest_flip_gap']}); router probabilities within "
+                   f"{row['largest_prob_gap']:.3g} of the host's")
+        log(f"reduced {cfg.name}: card (K4) and host logits agree, prefill + 8 "
+            f"decode steps, max abs gap {res['gap']:.3g} (tolerance "
+            f"{REDUCED_TOL}){txt}")
+        out[arch] = row
+    return out
+
+
+def models_path(np, torch, dev, k4, card: str) -> dict:
+    """Phase 8: the MoE family and the dense configs through K4."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"8a": moe_serving(np, torch, dev, k4, "olmoe_1b_7b", SEED + 80,
+                             card, profile=True),
+           "8b": moe_serving(np, torch, dev, k4, "granite_moe_3b_a800m",
+                             SEED + 81, card, profile=False),
+           "8c": qwen3_serving(np, torch, dev, k4, card),
+           "8d": dense_serving(np, torch, dev, k4, card)}
+    t0 = time.perf_counter()
+    out["8e"] = reduced_on_card(np, torch, dev, k4)
+    out["8e"]["wall_s"] = time.perf_counter() - t0
+
+    # 8f: the launcher a user runs, on the card at full width (its own
+    # params and 8 short synthetic prompts): every request must finish
+    t0 = time.perf_counter()
+    k4.LAUNCHES["flash_attention"] = 0
+    if serve.main(["--arch", "olmoe_1b_7b", "--attn-impl", "pallas",
+                   "--json"]) != 0:
+        raise AssertionError("launch.serve --arch olmoe_1b_7b --attn-impl "
+                             "pallas failed on the card")
+    n_layers = get("olmoe_1b_7b").n_layers
+    if k4.LAUNCHES["flash_attention"] != n_layers * 8:
+        raise AssertionError(f"launch.serve launched K4 "
+                             f"{k4.LAUNCHES['flash_attention']} times, "
+                             f"expected {n_layers} layers x 8 requests")
+    free_card(torch, "launch.serve olmoe-1b-7b")
+    out["8f"] = {"k4_launches": k4.LAUNCHES["flash_attention"],
+                 "wall_s": time.perf_counter() - t0}
+    log(f"launch.serve --arch olmoe_1b_7b --attn-impl pallas on the card: 8 "
+        f"requests finished, K4 launches {out['8f']['k4_launches']}")
+    out["k4_launches"] = {
+        "olmoe_1b_7b": out["8a"]["k4_launches"],
+        "granite_moe_3b_a800m": out["8b"]["k4_launches"],
+        "qwen3_14b": out["8c"]["k4_launches"],
+        **{a: r["k4_launches"] for a, r in out["8d"].items()}}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase 8 walls (s): " + ", ".join(
+        f"{k} {v['wall_s']:.1f}" for k, v in out.items()
+        if isinstance(v, dict) and "wall_s" in v)
+        + ", " + ", ".join(f"8d {a} {r['wall_s']:.1f}"
+                           for a, r in out["8d"].items()))
+    log(f"phase 8 took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase(name: str, fn, *args, **kw):
+    """Run one phase of the script and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main(argv) -> int:
     only = None
     if argv:
         if argv[:1] != ["--only"] or argv[1:] not in (["wis"], ["service"],
-                                                       ["train"]):
-            return fail(f"usage: chip_smoke.py [--only wis|service|train], "
-                        f"not {argv}")
+                                                       ["train"], ["models"]):
+            return fail(f"usage: chip_smoke.py [--only wis|service|train|"
+                        f"models], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -2358,13 +2887,27 @@ def main(argv) -> int:
             library_ms=None, **training["7a"])], "training": training}),
             flush=True)
         return 0
+    if only == "models":  # the build, K4 alone, then the new configs
+        k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
+        models = phase("8", models_path, np, torch, dev, k4, card)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:108",
+            launches=sum(models["k4_launches"].values()),
+            model_launches=models["k4_launches"], **k4_row)],
+            "models": models}, default=str), flush=True)
+        return 0
     if only == "service":  # the build, then the streaming service alone
         service = service_path(dev, k1, k2)
         print(card, flush=True)
         print(json.dumps({"service": service}), flush=True)
         return 0
-    scores, k1_row = check_score_kernel(np, torch, dev, k1, k1_ref)
-    k2_row = check_settle_kernel(np, torch, dev, k2, k2_ref, scores)
+    scores, k1_row = phase("2 (K1)", check_score_kernel, np, torch, dev, k1,
+                           k1_ref)
+    k2_row = phase("2 (K2)", check_settle_kernel, np, torch, dev, k2, k2_ref,
+                   scores)
     if only == "wis":  # the WIS kernels alone: K1 feeds K2, then K3
         k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref, k2_row)
         print(card, flush=True)
@@ -2372,15 +2915,16 @@ def main(argv) -> int:
                                       dict(name="wis_dp", **k3_row)]}),
               flush=True)
         return 0
-    k5_row = check_scan_kernel(torch, dev, k5, k5_ref)
-    k4_row = check_attention_kernel(np, torch, dev, k4, k4_ref)
-    k3_row = check_dp_kernel(np, torch, dev, k2, k2_ref, k2_row)
+    k5_row = phase("2c", check_scan_kernel, torch, dev, k5, k5_ref)
+    k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
+    k3_row = phase("2e", check_dp_kernel, np, torch, dev, k2, k2_ref, k2_row)
     del scores
-    launches, run = main_path(torch, dev, k1, k2)
-    served = serving_path(np, torch, dev, k5, card)
-    hybrid = hybrid_serving_path(np, torch, dev, k4, k5, card)
-    service = service_path(dev, k1, k2, sim_run=run)
-    training = training_path(torch, dev, k5, k5_ref, card)
+    launches, run = phase("3", main_path, torch, dev, k1, k2)
+    served = phase("4", serving_path, np, torch, dev, k5, card)
+    hybrid = phase("5", hybrid_serving_path, np, torch, dev, k4, k5, card)
+    service = phase("6", service_path, dev, k1, k2, sim_run=run)
+    training = phase("7", training_path, torch, dev, k5, k5_ref, card)
+    models = phase("8", models_path, np, torch, dev, k4, card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -2411,7 +2955,8 @@ def main(argv) -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:108",
-        launches=hybrid["k4_launches"], **k4_row))
+        launches=hybrid["k4_launches"],
+        model_launches=models["k4_launches"], **k4_row))
     kernels.append(dict(
         name="wis_dp", route="cuda",
         source="src/repro_torch/kernels/csrc/wis_batch.cu",

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``repro/configs/registry.py``.  ``ARCH_NAMES``
 lists the reference's ten configs; ``PORTED`` the ones whose family the
-port runs.  ``get`` / ``reduced`` / ``info`` of another name raise.
+port runs (all but the ``vlm`` and ``encdec`` configs).  ``get`` / ``reduced`` / ``info`` of another name raise.
 
 ``get`` returns the bare ``ModelConfig`` where the reference's returns
 ``(cfg, info)``; the ``ArchInfo`` (the optimizer the launcher trains with,
@@ -67,7 +67,9 @@ class ArchInfo:
 
 
 #: configs with a module in the port (their families run here)
-PORTED = ("falcon_mamba_7b", "recurrentgemma_9b")
+PORTED = ("starcoder2_15b", "qwen1_5_4b", "qwen3_14b", "llama3_405b",
+          "falcon_mamba_7b", "olmoe_1b_7b", "granite_moe_3b_a800m",
+          "recurrentgemma_9b")
 
 
 def _module(name: str):

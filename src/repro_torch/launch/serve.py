@@ -1,4 +1,5 @@
-"""Serving launcher: continuous-batching engine for a ported arch.
+"""Serving launcher: continuous-batching engine for any ported
+decoder-only arch (``configs.registry.PORTED``).
 
 The port's counterpart of ``repro/launch/serve.py``, with the same flags
 plus ``--device`` (``cuda`` unless ``cpu`` is asked for) and
@@ -9,7 +10,7 @@ the card; decode keeps ``auto``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \
         --reduced --device cpu
-    python -m repro_torch.launch.serve --arch recurrentgemma_9b \
+    python -m repro_torch.launch.serve --arch olmoe_1b_7b \
         --attn-impl pallas
 """
 from __future__ import annotations

@@ -1,17 +1,20 @@
 """Model configuration of the families the port runs.
 
 The port's copy of ``repro/models/config.py`` with torch dtypes, cut to the
-fields the ``dense``, ``ssm`` and ``hybrid`` families read.  ``family`` may
-still name ``moe``, ``vlm`` or ``encdec``; ``Model`` and ``init_params``
-raise for them.
+fields the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families read.
+``family`` may still name ``vlm`` or ``encdec``; ``Model`` and
+``init_params`` raise for them.
 
 Layers are organized into homogeneous *superblocks* whose params are
 stacked on a leading axis (the port loops over it in Python):
 
-  dense     : superblock = 1 block, n_super = n_layers
+  dense/moe : superblock = 1 block, n_super = n_layers
   ssm       : superblock = 1 mamba block
   hybrid    : superblock = pattern (e.g. rglru, rglru, attn), plus a tail
               stack for the remainder layers
+
+``moe_shard`` is carried for the config modules; nothing in the port reads
+it until it shards (``ROADMAP.md`` §1, item 7).
 """
 from __future__ import annotations
 
@@ -48,6 +51,13 @@ class ModelConfig:
     gated_mlp: bool = True  # llama/qwen SwiGLU vs whisper/starcoder GELU
     act: str = "silu"
 
+    # -- MoE -------------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
     # -- SSM (mamba-1) ----------------------------------------------------------
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -58,10 +68,11 @@ class ModelConfig:
     pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
     lru_width: int = 0  # 0 → d_model
 
-    # -- numerics ------------------------------------------------------------------
+    # -- numerics / sharding ----------------------------------------------------------
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
+    moe_shard: str = "expert"  # expert | ffn
     # model-axis size the padding rules target (fixed by the production mesh)
     model_axis_size: int = 16
 
@@ -92,6 +103,8 @@ class ModelConfig:
     def superblock(self) -> Tuple[str, ...]:
         if self.family == "dense":
             return ("attn",)
+        if self.family == "moe":
+            return ("moe",)
         if self.family == "ssm":
             return ("mamba",)
         if self.family == "hybrid":
@@ -109,3 +122,39 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for roofline."""
+        D, F, V = self.d_model, self.d_ff, self.padded_vocab
+        H, Hkv, hd = self.n_heads, self.n_kv_heads, self.hd
+        n = V * D * (1 if self.tie_embeddings else 2)  # embed (+unembed)
+        attn = D * hd * (H + 2 * Hkv) + H * hd * D
+        mlp = (3 if self.gated_mlp else 2) * D * F
+        if self.family == "hybrid":
+            Dr = self.lru_dim
+            rglru = D * 2 * Dr + Dr * self.ssm_conv + 2 * Dr + Dr * D + Dr * Dr // 8
+            n_attn = self.superblock.count("attn") * self.n_super
+            n_rec = self.n_layers - n_attn
+            return n + n_attn * (attn + mlp) + n_rec * (rglru + mlp)
+        if self.family == "moe":
+            e_mlp = (3 if self.gated_mlp else 2) * D * self.d_expert
+            per_layer = attn + self.n_experts * e_mlp + D * self.n_experts
+        elif self.family == "ssm":
+            Dm, N, R = self.d_inner, self.ssm_state, self.dt_rank_actual
+            per_layer = D * 2 * Dm + Dm * self.ssm_conv + Dm * (R + 2 * N) \
+                + R * Dm + Dm * N + Dm + Dm * D
+        elif self.family in ("dense", "vlm"):
+            per_layer = attn + mlp
+        else:  # encdec: its encoder layers are not carried here
+            raise NotImplementedError(
+                f"param_count of the {self.family!r} family is not ported")
+        return n + self.n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top-k of experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        e_mlp = (3 if self.gated_mlp else 2) * self.d_model * self.d_expert
+        dense_part = self.param_count() - self.n_layers * self.n_experts * e_mlp
+        return dense_part + self.n_layers * self.top_k * e_mlp

@@ -1,12 +1,13 @@
 """Model assembly: one Model class for the families the port runs.
 
-The port's counterpart of ``repro/models/model.py`` for ``dense``, ``ssm``
-and ``hybrid``; ``moe``, ``vlm`` and ``encdec`` raise ``NotImplementedError``
-(``ROADMAP.md`` §1).
+The port's counterpart of ``repro/models/model.py`` for ``dense``,
+``moe``, ``ssm`` and ``hybrid``; ``vlm`` and ``encdec`` raise
+``NotImplementedError`` (``ROADMAP.md`` §1).
 
 Execution paths:
-  * ``forward``      — full-sequence logits (training / eval); ``loss_fn``
-                       is its mean cross entropy.
+  * ``forward``      — full-sequence logits (training / eval) and the MoE
+                       aux loss summed over the layers; ``loss_fn`` is the
+                       mean cross entropy plus ``router_aux_weight`` × aux.
   * ``prefill``      — full sequence, returns last-position logits + cache.
   * ``decode_step``  — one token against a cache (serving inner loop).
 
@@ -22,7 +23,7 @@ place, and returns it: a full width mamba state is 134 MB a step that
 need not be copied.
 
 Attention caches:
-  * dense self-attn — linear cache (B, Tmax, Hkv, hd), written at
+  * dense / moe self-attn — linear cache (B, Tmax, Hkv, hd), written at
     ``index``; the start is clamped as ``dynamic_update_slice`` clamps it.
   * hybrid local-attn — RING cache of size ``window`` with per-slot
     positions (stale slots overwritten; masking uses stored positions).
@@ -38,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.common import resolve_device
 from .config import ModelConfig
 from .layers import attention, mlp, rms_norm, rope, softmax_cross_entropy
+from .moe import moe_ffn
 from .params import PORTED_FAMILIES, init_params
 from .rglru import rglru_decode_step, rglru_seq
 from .ssm import mamba_decode_step, mamba_seq
@@ -149,21 +151,27 @@ class Model:
     # =========================================================================
     def _apply_block(self, kind, p, x, positions, *, cache=None, index=None,
                      impl="auto", decode=False):
-        """Returns ``(x, new recurrent state or None)``."""
+        """Returns ``(x, new recurrent state or None, MoE aux loss or None)``."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1_scale"], cfg.norm_eps)
-        new_state = None
-        if kind == "attn":
+        if kind in ("attn", "moe"):
             window = cfg.window if cfg.family == "hybrid" else None
             x = x + self._self_attn(p["attn"], h, positions, cache=cache,
                                     index=index, window=window, impl=impl)
-            return self._mlp_res(p, x), None
+            if kind == "attn":
+                return self._mlp_res(p, x), None, None
+            h2 = rms_norm(x, p["ln2_scale"], cfg.norm_eps)
+            out, aux = moe_ffn(h2, p["moe"], top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               act=cfg.act, gated=cfg.gated_mlp)
+            return x + out, None, aux
         if kind == "mamba":
             seq, step = mamba_seq, mamba_decode_step
         elif kind == "rglru":
             seq, step = rglru_seq, rglru_decode_step
         else:
             raise ValueError(kind)
+        new_state = None
         if decode:
             out, new_state = step(h[:, 0], p[kind], cfg, cache)
             out = out[:, None]
@@ -175,7 +183,7 @@ class Model:
         x = x + out
         if kind == "rglru":
             x = self._mlp_res(p, x)
-        return x, new_state
+        return x, new_state, None
 
     # =========================================================================
     # superblock stack (Python loop over depth)
@@ -183,40 +191,48 @@ class Model:
     def _run_layers(self, stack_params, x, positions, *, names, n_layers,
                     cache=None, index=None, impl="auto", decode=False,
                     remat=False):
+        """Returns ``(x, the MoE blocks' aux losses summed)``; the aux is None
+        where no block made one, and with a cache (serving drops it)."""
         remat = remat and cache is None and torch.is_grad_enabled()
+        aux = None
         for layer in range(n_layers):
             for name in names:
                 kind = name.split("_", 1)[1]
                 p = _index(stack_params[name], layer)
                 if remat:
-                    x = checkpoint(self._block_out, kind, p, x, positions,
-                                   impl, use_reentrant=False)
-                    continue
-                c = _index(cache[name], layer) if cache is not None else None
-                x, state = self._apply_block(
-                    kind, p, x, positions, cache=c, index=index, impl=impl,
-                    decode=decode)
-                if state is not None:
-                    _write(c, state)
-        return x
+                    x, aux_l = checkpoint(self._block_out, kind, p, x,
+                                          positions, impl, use_reentrant=False)
+                else:
+                    c = _index(cache[name], layer) if cache is not None else None
+                    x, state, aux_l = self._apply_block(
+                        kind, p, x, positions, cache=c, index=index,
+                        impl=impl, decode=decode)
+                    if state is not None:
+                        _write(c, state)
+                if aux_l is not None and cache is None:
+                    aux = aux_l if aux is None else aux + aux_l
+        return x, aux
 
     def _block_out(self, kind, p, x, positions, impl):
-        return self._apply_block(kind, p, x, positions, impl=impl)[0]
+        x, _, aux_l = self._apply_block(kind, p, x, positions, impl=impl)
+        return x, aux_l
 
     def _run_all(self, params, x, positions, *, cache=None, index=None,
                  impl="auto", decode=False, remat=False):
+        """Returns ``(final-normed x, aux loss summed over the layers or
+        None)``."""
         cfg = self.cfg
         blocks = params["blocks"]
-        x = self._run_layers(
+        x, aux = self._run_layers(
             blocks, x, positions, names=list(blocks), n_layers=cfg.n_super,
             cache=None if cache is None else cache["blocks"], index=index,
             impl=impl, decode=decode, remat=remat)
         if "tail" in params:
-            x = self._run_layers(
+            x, _ = self._run_layers(
                 params["tail"], x, positions, names=list(params["tail"]),
                 n_layers=1, cache=None if cache is None else cache["tail"],
                 index=index, impl=impl, decode=decode)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     # =========================================================================
     # embedding / head
@@ -242,16 +258,18 @@ class Model:
     # =========================================================================
     def forward(self, params, tokens, *, impl="auto", remat=True,
                 positions=None):
-        """tokens (B, S) → (logits (B, S, Vp), aux loss 0).
+        """tokens (B, S) → (logits (B, S, Vp), aux loss: the MoE blocks'
+        sum, 0 in the other families).
 
         ``remat`` checkpoints each block of the stack (not the tail, as the
         reference) when autograd records; it changes no value."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x = self._run_all(params, self.embed(params, tokens), positions,
-                          impl=impl, remat=remat)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        x, aux = self._run_all(params, self.embed(params, tokens), positions,
+                               impl=impl, remat=remat)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self.unembed(params, x), aux
 
     # =========================================================================
@@ -259,11 +277,17 @@ class Model:
     # =========================================================================
     def loss_fn(self, params, batch, *, impl="auto", remat=True):
         """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"},
-        (B, S) integer tensors on the params' device), a float32 scalar."""
-        logits, _ = self.forward(params, batch["tokens"], impl=impl,
-                                 remat=remat)
-        return softmax_cross_entropy(logits, batch["labels"],
-                                     real_vocab=self.cfg.vocab_size)
+        (B, S) integer tensors on the params' device), plus
+        ``router_aux_weight`` × the aux loss in the ``moe`` family; a
+        float32 scalar."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch["tokens"], impl=impl,
+                                   remat=remat)
+        loss = softmax_cross_entropy(logits, batch["labels"],
+                                     real_vocab=cfg.vocab_size)
+        if cfg.family == "moe":
+            loss = loss + cfg.router_aux_weight * aux
+        return loss
 
     # =========================================================================
     # serving
@@ -281,7 +305,7 @@ class Model:
             return torch.zeros(shape, dtype=dt, device=dev)
 
         def sub(kind, n):
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 t = min(cfg.window, max_seq) if cfg.family == "hybrid" else max_seq
                 c = {"k": zeros((n, batch, t, cfg.n_kv_heads, cfg.hd)),
                      "v": zeros((n, batch, t, cfg.n_kv_heads, cfg.hd))}
@@ -318,8 +342,8 @@ class Model:
         else:
             positions = index[:, None]
         x = self.embed(params, token[:, None])
-        x = self._run_all(params, x, positions, cache=cache, index=index,
-                          impl=impl, decode=True)
+        x, _ = self._run_all(params, x, positions, cache=cache, index=index,
+                             impl=impl, decode=True)
         return self.unembed(params, x)[:, 0], cache
 
     def prefill(self, params, tokens, *, impl="auto", max_seq=None):
@@ -332,6 +356,6 @@ class Model:
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cache = self.init_cache(b, max_seq or s, device=tokens.device)
-        x = self._run_all(params, self.embed(params, tokens), positions,
-                          cache=cache, index=0, impl=impl)
+        x, _ = self._run_all(params, self.embed(params, tokens), positions,
+                             cache=cache, index=0, impl=impl)
         return self.unembed(params, x[:, -1:])[:, 0], cache, None

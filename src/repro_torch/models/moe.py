@@ -1,0 +1,131 @@
+"""Mixture-of-Experts FFN: GShard-style grouped capacity dispatch.
+
+The port's counterpart of ``repro/models/moe.py``: top-k routing with a
+capacity bound per group of ``group_size`` tokens (dropped tokens pass
+through the residual), and the Switch aux load-balancing loss
+E·Σ_e f_e·p_e over the pre-capacity router distribution.  The reference
+computes all of it outside any Pallas kernel, so it is plain torch here.
+
+Routing follows the reference bit for bit:
+  * router logits and softmax in float32;
+  * the top k by a stable descending sort: values in descending order,
+    ties toward the lower expert index, as ``jax.lax.top_k`` breaks them
+    (``torch.topk`` promises no order among equal values, and the order of
+    the k choices decides who gets a slot);
+  * slots taken k-choice-major, then in token order;
+  * the gate weights rounded to bfloat16 before the combine, as the
+    reference builds its combine tensor in bfloat16 in every model dtype.
+
+The reference dispatches through one-hot (G, g, E, C) tensors and einsums.
+A token picks each expert at most once among its top k, so every (token,
+expert, slot) entry of those tensors has at most one nonzero term: the
+port scatters the kept tokens into their (expert, slot) rows and gathers
+the experts' outputs back, with the same values and no (G, g, k, E, C)
+transient (85 M entries at olmoe's 2048-token prefill).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .layers import _act
+
+__all__ = ["Routing", "route", "moe_ffn"]
+
+
+class Routing(NamedTuple):
+    """One call's routing, per (group, token, choice) unless noted."""
+
+    expert: torch.Tensor  # (G, g, k) int64: the chosen experts, best first
+    gate: torch.Tensor  # (G, g, k) float32: renormalised top-k probabilities
+    slot: torch.Tensor  # (G, g, k) int64: position in the expert's queue
+    keep: torch.Tensor  # (G, g, k) bool: slot < capacity
+    capacity: int  # slots per expert and group
+    aux: torch.Tensor  # () float32: the Switch load-balancing loss
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, *, top_k: int,
+          capacity_factor: float) -> Routing:
+    """Route grouped tokens ``xt`` (G, g, D) through ``router`` (D, E)."""
+    n_groups, g, _ = xt.shape
+    E = router.shape[-1]
+    logits = torch.einsum("gsd,de->gse", xt.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)  # (G, g, E)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = order.values[..., :top_k], order.indices[..., :top_k]
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # aux loss on the pre-capacity distribution (Switch/GShard)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(expert[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+
+    # priority: k-choice-major, then token order (GShard convention).  A
+    # choice's slot is the count of earlier choices of its expert: its rank
+    # in a stable sort by expert, less where the expert's run starts (the
+    # reference's cumsum over a one-hot (G, g·k, E), without the one-hot)
+    cap = int(g * top_k / E * capacity_factor) + 1
+    flat = expert.transpose(1, 2).reshape(n_groups, top_k * g)
+    order = torch.sort(flat, dim=1, stable=True).indices
+    counts = torch.zeros((n_groups, E), dtype=flat.dtype, device=flat.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    starts = counts.cumsum(dim=1) - counts
+    rank = torch.arange(top_k * g, device=flat.device).expand_as(flat) \
+        - starts.gather(1, flat.gather(1, order))
+    slot = torch.empty_like(flat).scatter_(1, order, rank)
+    slot = slot.reshape(n_groups, top_k, g).transpose(1, 2)
+    return Routing(expert, gate, slot, slot < cap, cap, aux)
+
+
+def moe_ffn(
+    x: torch.Tensor,  # (B, S, D)
+    p,  # params: router (D,E), w_gate/w_up (E,D,Fe), w_down (E,Fe,D)
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    group_size: int = 512,
+    act: str = "silu",
+    gated: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(out (B, S, D) in x's dtype, aux loss float32 scalar)``.
+
+    Raises ValueError where S is longer than ``group_size`` and not a
+    multiple of it (the reference asserts): padding would change each
+    group's capacity and which tokens are dropped."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    g = min(group_size, S)
+    if S % g:
+        raise ValueError(f"a sequence of {S} tokens does not divide into "
+                         f"router groups of {g}")
+    n_groups = B * (S // g)
+    xt = x.reshape(n_groups, g, D)
+    r = route(xt, p["router"], top_k=top_k, capacity_factor=capacity_factor)
+    cap = r.capacity
+
+    # dispatch: each kept (token, choice) fills row (expert, group, slot) of
+    # a flat buffer; rows no token reached stay zero, as the one-hot einsum
+    # leaves them.  Dropped choices all land on one spare last row, so no
+    # mask selection (and no wait for the device) is needed.
+    grp = torch.arange(n_groups, device=x.device)[:, None, None]
+    rows_at = (r.expert * n_groups + grp) * cap + r.slot.clamp(max=cap - 1)
+    spare = E * n_groups * cap
+    buf = x.new_zeros((spare + 1, D))
+    buf[torch.where(r.keep, rows_at, spare)] = \
+        xt[:, :, None, :].expand(-1, -1, top_k, -1)
+    ein = buf[:spare].view(E, n_groups * cap, D)
+
+    if gated:
+        h = _act(torch.bmm(ein, p["w_gate"]), act) * torch.bmm(ein, p["w_up"])
+    else:
+        h = _act(torch.bmm(ein, p["w_up"]), act)
+    out_e = torch.bmm(h, p["w_down"]).reshape(spare, D)
+
+    # combine: the kept choices' rows weighted by the bf16-rounded gates,
+    # one product a token accumulated in float32 as the reference's einsum
+    # (a dropped choice adds zero)
+    rows = torch.where(r.keep[..., None], out_e[rows_at], 0.0)
+    w = r.gate.to(torch.bfloat16).to(rows.dtype)
+    out = torch.bmm(w.reshape(-1, 1, top_k), rows.reshape(-1, top_k, D))
+    return out.reshape(B, S, D).to(x.dtype), r.aux

@@ -1,7 +1,7 @@
 """Parameter templates: one source of truth for shapes, dtypes and inits.
 
 The port's counterpart of ``repro/models/params.py`` for the families the
-port runs (``dense``, ``ssm``, ``hybrid``).  A template is a nested dict of
+port runs (``dense``, ``moe``, ``ssm``, ``hybrid``).  A template is a nested dict of
 ``P`` leaves with the reference's shapes -- stacked superblocks carry a
 leading layer axis -- and its init recipes (fan-in normal, ``alog``,
 ``dtbias``, ``lam``).  The logical sharding specs are left out until the
@@ -26,7 +26,7 @@ from .config import ModelConfig
 __all__ = ["P", "build_template", "init_params", "PORTED_FAMILIES"]
 
 #: families whose blocks the port builds and runs
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -75,6 +75,16 @@ def _norm_tpl(cfg: ModelConfig, L: int, name: str) -> Dict[str, P]:
     return {f"{name}_scale": P((L, cfg.d_model), init="zeros", dtype=torch.float32)}
 
 
+def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    return {
+        "router": P((L, D, E), fan_in=D, dtype=torch.float32),
+        "w_gate": P((L, E, D, Fe), fan_in=D),
+        "w_up": P((L, E, D, Fe), fan_in=D),
+        "w_down": P((L, E, Fe, D), fan_in=Fe),
+    }
+
+
 def _mamba_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     D, Dm, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
                       cfg.dt_rank_actual)
@@ -114,6 +124,11 @@ def _block_tpl(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
         return {
             **_norm_tpl(cfg, L, "ln1"), "attn": _attn_tpl(cfg, L),
             **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
+        }
+    if kind == "moe":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "attn": _attn_tpl(cfg, L),
+            **_norm_tpl(cfg, L, "ln2"), "moe": _moe_tpl(cfg, L),
         }
     if kind == "mamba":
         return {**_norm_tpl(cfg, L, "ln1"), "mamba": _mamba_tpl(cfg, L)}

@@ -47,7 +47,10 @@ def test_import_leaves_jax_and_reference_out():
                  "serving.adapter", "launch.serve_auction",
                  "training.optimizer", "training.schedule", "training.trainer",
                  "data.pipeline", "distributed.compression", "core.executor",
-                 "core.baselines", "launch.train"):
+                 "core.baselines", "launch.train", "models.moe",
+                 "configs.olmoe_1b_7b", "configs.granite_moe_3b_a800m",
+                 "configs.qwen3_14b", "configs.qwen1_5_4b",
+                 "configs.starcoder2_15b", "configs.llama3_405b"):
         assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
 
 
@@ -93,6 +96,9 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "recurrentgemma_9b", "--reduced",
                     "--attn-impl", "pallas"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "olmoe_1b_7b", "--reduced", "--attn-impl",
+                    "pallas"])
     from repro_torch.launch import train
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
