@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only service   # phases 1 and 6 alone
     python3 chip_smoke.py --only train     # phases 1 and 7 alone
     python3 chip_smoke.py --only models    # phases 1, 2d and 8 alone
+    python3 chip_smoke.py --only xattn     # phases 1, 2d and 9 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -46,7 +47,13 @@ Phases (any failure exits non-zero and prints no result):
    (1, 48, 2048, 128) on 4 and llama3-405b's (1, 128, 2048, 128) on 8, and
    phase 8's served shapes, whose keys run to max_seq past the prompt
    (starcoder2 Sk 2064, granite Sk 2112, qwen3-14b 4096 on Sk 4224), causal,
-   bfloat16.  Each case prints the kernel it
+   bfloat16; and phase 9's shapes, bfloat16: whisper-small's encoder
+   (4, 12, 1500, 64) MHA non-causal, its cross attention (4, 12, 224, 64)
+   on Sk 1500 non-causal and its decoder's self attention (4, 12, 224, 64)
+   on the 448-row cache, causal; llama-3.2-vision's cross attention
+   (2, 64, 2048, 128) on 8 kv heads against 1600 patches, non-causal, and
+   its self attention on the 2112-row cache, causal (the last key tile is
+   partial in every non-causal case).  Each case prints the kernel it
    ran (``flash_attention_path``: the tensor cores for bfloat16 at D >= 64,
    else the CUDA cores), and the tensor-core cases are also held against
    ``mha_tiled_reference`` within 1e-2.  Each is timed beside its plain
@@ -174,7 +181,34 @@ Phases (any failure exits non-zero and prints no result):
    printed, not gated); 8f ``python -m
    repro_torch.launch.serve --arch olmoe_1b_7b --attn-impl pallas`` serves
    its 8 default requests on the card.  Each model is freed before the
-   next is drawn, and the peak memory printed.
+   next is drawn, and the peak memory printed;
+9. the cross-attention families, each initialised on the card from a seed
+   in bfloat16, with the leaves the reference draws as zeros (LayerNorm
+   scales and biases, qkv and MLP biases, the VLM's tanh gates) drawn
+   from the seed too: with zeros whisper's logits are identically zero
+   and the VLM's cross attention reaches nothing.  Each runs
+   ``Model.prefill(memory=)`` over a seeded N(0, 1) float32 memory, then
+   greedy ``decode_step(cross_stack=)``, once with prefill attention
+   through K4 (``impl="pallas"``) and once through ``"auto"``.  9a
+   whisper-small at full width and depth (12 + 12 layers), a batch of 4
+   each with its own 1500-frame memory: 4-token prompts and 64 new tokens,
+   then 224-token prompts and 16 new tokens, max_seq 448; 9b
+   llama-3.2-vision-90b at full width with 20 of its 100 layers (16 self,
+   4 cross; 38.5 GB in bfloat16), a batch of 2 each with its own
+   1600-patch memory, 2048-token prompts, 16 new tokens, max_seq 2112.
+   Gated: every row yields its tokens, all below the vocab, and the logits
+   are finite; K4 launches once an attention layer in a prefill (36 for
+   whisper: 12 encoder, 12 self, 12 cross; 20 for the VLM), never in a
+   decode step or through auto; ``cross_kv`` runs once a prefill and its
+   stack is (L_cross, B, T, Hkv, hd); where auto's top-1 margin exceeds
+   twice the largest gap between the two runs' prefill logits, the first
+   token agrees.  Printed: prefill ms through K4 and auto, the median
+   decode ms, the peak memory, the reference's ``param_count`` beside the
+   leaf count, and K4's share of a profiled prefill's device time.  9c the
+   two configs reduced (float32) on the card through K4 must match the
+   host within 1e-4 over a prefill and 8 decode steps; 9d ``python -m
+   repro_torch.launch.train --arch whisper_small --reduced --steps 20``
+   on cuda and on cpu: both exit 0, losses within 1e-4.
 
 Every phase prints its wall time.
 
@@ -686,8 +720,11 @@ def check_scan_kernel(torch, dev, k5, ref):
 #: GQA widths, a cache longer than the queries, a non-causal case; the
 #: 2048-token prefills of olmoe-1b-7b (MHA), granite-moe-3b-a800m (D = 64
 #: on 8 kv heads), qwen1.5-4b (MHA), starcoder2-15b (group 12) and
-#: llama3-405b (group 16); and phase 8's served shapes, whose keys run to
-#: max_seq past the prompt (starcoder2, granite and qwen3's longest)
+#: llama3-405b (group 16); phase 8's served shapes, whose keys run to
+#: max_seq past the prompt (starcoder2, granite and qwen3's longest); and
+#: phase 9's: whisper-small's encoder, cross and decoder self attention
+#: (224-token and 4-token prompts), llama-3.2-vision's cross and self
+#: attention
 ATTN_CASES = (
     (1, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0),
     (1, 16, 1, 2500, 2500, 256, "bfloat16", True, 2048, 0),
@@ -705,6 +742,13 @@ ATTN_CASES = (
     (1, 48, 4, 2048, 2064, 128, "bfloat16", True, None, 0),
     (1, 24, 8, 2048, 2112, 64, "bfloat16", True, None, 0),
     (1, 40, 8, 4096, 4224, 128, "bfloat16", True, None, 0),
+    (4, 12, 12, 1500, 1500, 64, "bfloat16", False, None, 0),
+    (4, 12, 12, 224, 1500, 64, "bfloat16", False, None, 0),
+    (4, 12, 12, 224, 448, 64, "bfloat16", True, None, 0),
+    (2, 64, 8, 2048, 1600, 128, "bfloat16", False, None, 0),
+    (2, 64, 8, 2048, 2112, 128, "bfloat16", True, None, 0),
+    (4, 12, 12, 4, 448, 64, "bfloat16", True, None, 0),
+    (4, 12, 12, 4, 1500, 64, "bfloat16", False, None, 0),
 )
 ATTN_MAIN = ATTN_CASES[2]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
@@ -716,10 +760,21 @@ ATTN_TILED_TOL = 1e-2
 #: time limits (ms) of the tensor-core kernel: recurrentgemma's 4096-token
 #: prefill shape and the GQA widths
 ATTN_LIMIT_MS = {ATTN_CASES[2]: 0.6, ATTN_CASES[3]: 1.2}
+#: non-causal (B, Hq, Hkv, Sq, Sk, D) whose last key tile is partial
+#: (TcTile::kKeys in flash_attention.cu, ATTN_TILE_KEYS here): whisper's
+#: 4-token cross attention and its encoder (1500 = 23 x 64 + 28 keys),
+#: the VLM's cross attention (1600 = 12 x 128 + 64)
+ATTN_PAD_CASES = ((4, 12, 12, 4, 1500, 64), (4, 12, 12, 1500, 1500, 64),
+                  (2, 64, 8, 2048, 1600, 128))
+ATTN_TILE_KEYS = {64: 64, 128: 128, 256: 64}
 #: the tensor-core kernel must beat one SDPA call at these shapes
 ATTN_BEATS_SDPA = (ATTN_CASES[1], ATTN_CASES[2])
 #: ... and be this many times faster than the CUDA-core kernel on bf16 input
+#: where a head has at least one 64 x 64 tile of (row, key) pairs to compute;
+#: below that (whisper's 4-token decoder self attention sees 10 pairs a
+#: head) both kernels take about a launch
 ATTN_SPEEDUP = 4.0
+ATTN_SPEEDUP_MIN_PAIRS = 64 * 64
 
 
 def keys_seen(np, sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
@@ -836,6 +891,7 @@ def check_attention_kernel(np, torch, dev, k4, ref):
             "shape": [b, hq, hkv, sq, sk, d], "dtype": dt, "causal": causal,
             "window": window, "q_offset": off,
             "path": "tensor_cores" if path else "cuda_cores",
+            "pairs_per_head": seen,
             "max_abs_err": max_err, "max_abs_err_tiled": tiled_err,
             "ms": ms, "cuda_core_ms": cc_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_s * 1e3,
@@ -845,17 +901,68 @@ def check_attention_kernel(np, torch, dev, k4, ref):
         del q, k, v, out, want, err, o_raw
         torch.cuda.empty_cache()
     attention_gates(rows)
+    padding = check_attention_padding(torch, dev, k4, ref)
     main = rows[ATTN_CASES.index(ATTN_MAIN)]
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                  "bound_ms", "bound_by")} | {
         "shape": {"B": 1, "Hq": 16, "Hkv": 1, "S": 4096, "D": 256,
                   "dtype": "bfloat16", "window": 2048},
-        "cases": rows}
+        "cases": rows, "padding": padding}
+
+
+def check_attention_padding(torch, dev, k4, ref) -> list:
+    """The tensor-core kernel's mask of a partial last key tile when not
+    causal, on inputs where keys left unmasked would take the softmax:
+    q ~ N(2, 1) and k ~ N(-2, 1) put every real logit near -4 sqrt(D),
+    the zeros TMA fills past Sk give logit 0, and v ~ N(8, 1).  The fault
+    (the plain version over K and V zero-padded to whole tiles) must miss
+    the tolerance on every entry, and the kernel meet it on every entry."""
+    tol = ATTN_TOL["bfloat16"]
+    rows = []
+    for n, (b, hq, hkv, sq, sk, d) in enumerate(ATTN_PAD_CASES):
+        pad = -sk % ATTN_TILE_KEYS[d]
+        name = (f"K4 flash_attention ({b}, {hq}, {sq}, {d}) kv {hkv} Sk {sk} "
+                f"bfloat16 causal=False, last key tile {sk % ATTN_TILE_KEYS[d]}"
+                f" of {ATTN_TILE_KEYS[d]}")
+        if not pad:
+            raise AssertionError(f"{name}: the last key tile is whole")
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 70 + n)
+        q, k, v = ((torch.randn(shape, generator=g, device=dev) + mean)
+                   .to(torch.bfloat16) for shape, mean in (
+                       ((b, hq, sq, d), 2.0), ((b, hkv, sk, d), -2.0),
+                       ((b, hkv, sk, d), 8.0)))
+        out = k4.mha_cuda(q, k, v, causal=False).float()
+        want = ref.mha_reference(q, k, v, causal=False).float()
+        zeros = torch.zeros((b, hkv, pad, d), dtype=q.dtype, device=dev)
+        fault = ref.mha_reference(q, torch.cat([k, zeros], 2),
+                                  torch.cat([v, zeros], 2), causal=False).float()
+        limit = tol + tol * want.abs()
+        err, fault_err = (out - want).abs(), (fault - want).abs()
+        n_bad = int((err > limit).sum().item())
+        n_seen = int((fault_err > limit).sum().item())
+        max_err, fault_min = float(err.max().item()), float(fault_err.min().item())
+        if n_seen < want.numel():
+            raise AssertionError(f"{name}: unmasked padding would pass on "
+                                 f"{want.numel() - n_seen} entries; the check "
+                                 "cannot see the fault")
+        if n_bad:
+            raise AssertionError(f"{name}: {n_bad} entries outside atol = rtol "
+                                 f"= {tol} (max abs {max_err})")
+        log(f"{name}: within {tol} (max abs {max_err:.3g}); unmasked padding "
+            f"would miss it on every entry (least abs error {fault_min:.3g})")
+        rows.append({"shape": [b, hq, hkv, sq, sk, d], "keys_in_last_tile":
+                     sk % ATTN_TILE_KEYS[d], "max_abs_err": max_err,
+                     "fault_min_abs_err": fault_min})
+        del q, k, v, out, want, fault, zeros, err, fault_err, limit
+        torch.cuda.empty_cache()
+    return rows
 
 
 def attention_gates(rows) -> None:
     """The tensor-core kernel's time limits: absolute at two shapes, ahead
-    of SDPA at two, and ATTN_SPEEDUP x the CUDA-core kernel on bf16."""
+    of SDPA at two, and ATTN_SPEEDUP x the CUDA-core kernel on bf16 with
+    at least ATTN_SPEEDUP_MIN_PAIRS pairs a head."""
     by_case = dict(zip(ATTN_CASES, rows))
     missed = []
     for case, limit in ATTN_LIMIT_MS.items():
@@ -866,7 +973,8 @@ def attention_gates(rows) -> None:
         if r["library_ms"] is not None and not r["ms"] < r["library_ms"]:
             missed.append(f"{case}: {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
     for case, r in by_case.items():
-        if r["cuda_core_ms"] is not None and not (
+        if r["cuda_core_ms"] is not None and (
+                r["pairs_per_head"] >= ATTN_SPEEDUP_MIN_PAIRS) and not (
                 r["ms"] * ATTN_SPEEDUP <= r["cuda_core_ms"]):
             missed.append(f"{case}: {r['ms']:.4f} ms, not {ATTN_SPEEDUP}x under "
                           f"the CUDA-core kernel's {r['cuda_core_ms']:.4f} ms")
@@ -874,7 +982,8 @@ def attention_gates(rows) -> None:
         raise AssertionError("K4 time limits missed: " + "; ".join(missed))
     limits = ", ".join(f"{c[3]}x{c[5]} <= {v} ms" for c, v in ATTN_LIMIT_MS.items())
     log(f"K4 time limits hold: {limits}, ahead of SDPA at S = "
-        f"{[c[3] for c in ATTN_BEATS_SDPA]}, every bf16 case >= {ATTN_SPEEDUP}x "
+        f"{[c[3] for c in ATTN_BEATS_SDPA]}, every bf16 case of >= "
+        f"{ATTN_SPEEDUP_MIN_PAIRS} (row, key) pairs a head >= {ATTN_SPEEDUP}x "
         "faster than the CUDA-core kernel")
 
 
@@ -1629,7 +1738,9 @@ def card_vs_host(np, torch, dev, cfg, seed: int, impl: str) -> dict:
     drawn on the host from SEED: a 32-token prefill of two rows (attention
     ``impl``) and 8 decode steps.  Returns the largest logit gap ("gap")
     and, in the ``moe`` family, the routings (a call a layer) of the card
-    and of the host's replaying run, with the router probabilities.
+    and of the host's replaying run, with the router probabilities.  The
+    ``vlm`` and ``encdec`` families prefill over a seeded memory, with
+    ``live_params``' leaves, and decode against the prefill's cross stack.
 
     In the ``moe`` family the host runs twice: with its own routing, whose
     gap is returned as "own_gap" (printed, not gated), and with the card's
@@ -1642,18 +1753,25 @@ def card_vs_host(np, torch, dev, cfg, seed: int, impl: str) -> dict:
     from repro_torch.models import Model
 
     host_params = Model(cfg).init(SEED, device="cpu")
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    memory = None
+    if cfg.family in ("vlm", "encdec"):
+        live_params(torch, cfg, host_params, seed)
+        memory = rng.standard_normal(
+            (2, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)).astype(np.float32)
 
     def run(params, d, replay=None):
         with RouteRecorder(probs=True, replay=replay) as rec:
             m = Model(cfg)
             tk = torch.from_numpy(toks).to(d)
-            logits, cache, _ = m.prefill(params, tk[:, :32], impl=impl,
-                                         max_seq=64)
+            mem = None if memory is None else torch.from_numpy(memory).to(d)
+            logits, cache, cross = m.prefill(params, tk[:, :32], memory=mem,
+                                             impl=impl, max_seq=64)
             seq = [logits.float().cpu()]
             for t in range(32, 40):
-                logits, cache = m.decode_step(params, tk[:, t], t, cache)
+                logits, cache = m.decode_step(params, tk[:, t], t, cache,
+                                              cross_stack=cross)
                 seq.append(logits.float().cpu())
         return torch.stack(seq), rec.host_calls()
 
@@ -1865,13 +1983,15 @@ def profiled_events(torch, prof) -> list:
 
 
 def device_seconds(torch, prof, names, group_of) -> dict:
-    """Device seconds by group (``group_of(kernel name)`` picks one of
-    ``names``) from device activities only: a CPU op's self device time
-    repeats the time of the kernels and copies it launched."""
+    """Device seconds by group (``group_of(kernel name)``; each of ``names``
+    is listed, at 0 where nothing ran) from device activities only: a CPU
+    op's self device time repeats the time of the kernels and copies it
+    launched."""
     groups = dict.fromkeys(names, 0.0)
     for name, on_card, t0, t1 in profiled_events(torch, prof):
         if on_card:
-            groups[group_of(name)] += (t1 - t0) / 1e9
+            g = group_of(name)
+            groups[g] = groups.get(g, 0.0) + (t1 - t0) / 1e9
     return groups
 
 
@@ -2398,6 +2518,37 @@ def train_split(torch, dev, run, step: int, card: str) -> dict:
     return out
 
 
+def launcher_on_card_and_host(tag: str, argv) -> dict:
+    """``python -m repro_torch.launch.train *argv`` in subprocesses on cuda
+    and on cpu: both exit 0 and their losses agree within 1e-4 (relative)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv,
+             "--device", device],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag}: launch.train --device {device} "
+                                 f"exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        line = next(x for x in proc.stdout.splitlines()
+                    if x.startswith("losses: "))
+        losses[device] = json.loads(line[len("losses: "):])
+        log(f"{tag} launch.train {' '.join(argv)} --device {device}: exit 0 "
+            f"in {time.perf_counter() - t0:.2f} s; "
+            + proc.stdout.strip().splitlines()[-1])
+    a, b = losses["cuda"], losses["cpu"]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    if len(a) != len(b) or not gap <= 1e-4:
+        raise AssertionError(f"{tag}: cuda and cpu losses differ (largest "
+                             f"relative gap {gap}): {a} vs {b}")
+    log(f"{tag}: the {len(a)} losses agree on cuda and cpu, largest relative "
+        f"gap {gap:.3g} (tolerance 1e-4)")
+    return {"gap": gap, "losses": losses}
+
+
 def training_path(torch, dev, k5, k5_ref, card: str) -> dict:
     """Phase 7: K5's backward (7a), one train step against the plain scan
     (7b), 8 steps under the executor through the launcher's ``train``
@@ -2464,32 +2615,7 @@ def training_path(torch, dev, k5, k5_ref, card: str) -> dict:
     del run
     torch.cuda.empty_cache()
 
-    # 7d: the launcher in subprocesses, reduced, on the card and the host
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    losses = {}
-    for device in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train",
-             *TRAIN_LAUNCHER_ARGV, "--device", device],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"7d: launch.train --device {device} exited "
-                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        line = next(x for x in proc.stdout.splitlines()
-                    if x.startswith("losses: "))
-        losses[device] = json.loads(line[len("losses: "):])
-        log(f"7d launch.train {' '.join(TRAIN_LAUNCHER_ARGV)} --device "
-            f"{device}: exit 0 in {time.perf_counter() - t0:.2f} s; "
-            + proc.stdout.strip().splitlines()[-1])
-    a, b = losses["cuda"], losses["cpu"]
-    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
-    if len(a) != len(b) or not gap <= 1e-4:
-        raise AssertionError(f"7d: cuda and cpu losses differ (largest "
-                             f"relative gap {gap}): {a} vs {b}")
-    log(f"7d: the {len(a)} losses agree on cuda and cpu, largest relative "
-        f"gap {gap:.3g} (tolerance 1e-4)")
-    out["7d"] = {"gap": gap, "losses": losses}
+    out["7d"] = launcher_on_card_and_host("7d", TRAIN_LAUNCHER_ARGV)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 7 took {out['wall_s']:.1f} s")
     return out
@@ -2823,6 +2949,278 @@ def models_path(np, torch, dev, k4, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the cross-attention families (whisper-small, llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+#: (batch, prompt tokens, new tokens) of whisper-small's two prefills over
+#: one 1500-frame memory a row: the start-of-transcript prefix, and a
+#: previous-text prompt of half the 448-token context
+WHISPER_RUNS = ((4, 4, 64), (4, 224, 16))
+WHISPER_MAX_SEQ = 448
+#: llama-3.2-vision-90b's layers run at full width: 20 of its 100 (4
+#: superblocks of 4 self + 1 cross; 19.2 B params, 38.5 GB in bf16)
+VLM_LAYERS = 20
+VLM_RUN = (2, 2048, 16)
+VLM_MAX_SEQ = 2112
+XATTN_ARCHS = ("whisper_small", "llama3_2_vision_90b")
+XATTN_LAUNCHER_ARGV = ["--arch", "whisper_small", "--reduced", "--steps", "20"]
+
+
+def live_params(torch, cfg, params, seed: int) -> None:
+    """Draw the leaves the reference draws as zeros from ``seed``, in place:
+    LayerNorm scales (``encdec``) 1 + 0.3 N(0, 1), every other zeros leaf
+    (biases, the VLM's tanh gates, RMSNorm scales, which add 1) 0.3 N(0, 1).
+    With the reference's zeros whisper's logits are identically zero and
+    the VLM's cross attention reaches nothing."""
+    from repro_torch.models.params import P, build_template
+
+    gen = None
+
+    def walk(tpl, p, name):
+        nonlocal gen
+        if not isinstance(tpl, P):
+            for k in tpl:
+                walk(tpl[k], p[k], k)
+            return
+        if tpl.init != "zeros":
+            return
+        if gen is None:
+            gen = torch.Generator(device=p.device)
+            gen.manual_seed(seed)
+        scale = name.endswith("_scale") or name == "final_norm"
+        base = 1.0 if cfg.family == "encdec" and scale else 0.0
+        noise = torch.randn(p.shape, generator=gen, device=p.device)
+        p.copy_(base + 0.3 * noise)
+
+    walk(build_template(cfg), params, "")
+
+
+def xattn_prefill_profile(torch, model, params, toks, memory, max_seq: int):
+    """One more prefill through K4 under torch.profiler: device seconds by
+    kernel group, and K4's share of them (None where the profiler saw no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, toks, memory=memory, impl="pallas",
+                      max_seq=max_seq)
+        torch.cuda.synchronize()
+    groups = device_seconds(torch, prof, (), kernel_group)
+    busy = sum(groups.values())
+    return {"busy_s": busy, "groups": groups,
+            "k4_share": groups.get("K4", 0.0) / busy if busy else None}
+
+
+def xattn_k4_and_auto(np, torch, dev, k4, cfg, params, memory, toks, *,
+                      new: int, max_seq: int, card: str, what: str) -> dict:
+    """One batch of prompts over ``memory`` through ``Model.prefill`` with
+    attention through K4 and through "auto", then ``new`` greedy tokens a
+    row by ``decode_step`` against the prefill's cross stack.  Gated: K4
+    launches once an attention layer in the K4 prefill, never in decode or
+    through auto; ``cross_kv`` once a prefill, its stack (L_cross, B, T,
+    Hkv, hd); finite logits; tokens below the vocab; the first-token gate."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    n_cross = cfg.n_layers if cfg.family == "encdec" else cfg.n_super
+    n_attn = cfg.n_layers + (cfg.n_encoder_layers + cfg.n_layers
+                             if cfg.family == "encdec" else 0)
+    b, s = toks.shape
+    t_mem = memory.shape[1]
+    want_cross = (n_cross, b, t_mem, cfg.n_kv_heads, cfg.hd)
+    calls = [0]
+    real_cross_kv = model.cross_kv
+
+    def cross_kv(*args, **kw):
+        calls[0] += 1
+        return real_cross_kv(*args, **kw)
+
+    model.cross_kv = cross_kv
+    vocab = cfg.vocab_size
+    runs = {}
+    for impl in ("pallas", "auto"):
+        k4.LAUNCHES["flash_attention"] = 0
+        k4.SHAPES.clear()
+        calls[0] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, cross = model.prefill(params, toks, memory=memory,
+                                             impl=impl, max_seq=max_seq)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        k4_prefill, shapes = k4.LAUNCHES["flash_attention"], dict(k4.SHAPES)
+        got = [tuple(cross[k].shape) for k in ("k", "v")]
+        if got != [want_cross] * 2:
+            raise AssertionError(f"{what} {impl}: cross stack {got}, expected "
+                                 f"{want_cross}")
+        first = logits[:, :vocab].float()
+        tok = first.argmax(-1)
+        rows = [[] for _ in range(b)]
+        dec_ms = []
+        for i in range(new):
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{what} {impl}: non-finite logits at "
+                                     f"token {i}")
+            for r, x in zip(rows, tok.tolist()):
+                r.append(x)
+            if i == new - 1:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok, s + i, cache,
+                                              cross_stack=cross)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = logits[:, :vocab].argmax(-1)
+        runs[impl] = {
+            "logits": list(first), "prefill_ms": prefill_ms, "dec_ms": dec_ms,
+            "reqs": [SimpleNamespace(output=r) for r in rows],
+            "k4_prefill": k4_prefill, "k4_decode":
+            k4.LAUNCHES["flash_attention"] - k4_prefill, "k4_shapes": shapes,
+            "cross_kv_calls": calls[0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del logits, cache, cross
+        bad = [r for r in rows if len(r) != new or not all(0 <= x < vocab for x in r)]
+        if bad:
+            raise AssertionError(f"{what} {impl}: rows without {new} tokens "
+                                 f"below the vocab: {bad}")
+        if calls[0] != 1:
+            raise AssertionError(f"{what} {impl}: cross_kv ran {calls[0]} times "
+                                 "in a prefill and its decode steps")
+    pal, auto = runs["pallas"], runs["auto"]
+    if pal["k4_prefill"] != n_attn or pal["k4_decode"] or \
+            auto["k4_prefill"] or auto["k4_decode"]:
+        raise AssertionError(
+            f"{what}: K4 launched {pal['k4_prefill']} times in the K4 prefill "
+            f"(expected {n_attn}), {pal['k4_decode']} in its decode steps, "
+            f"{auto['k4_prefill'] + auto['k4_decode']} through auto (expected 0)")
+    unchecked = set(pal["k4_shapes"]) - set(ATTN_CASES)
+    if unchecked:
+        raise AssertionError(f"{what}: K4 ran at shapes phase 2d does not hold "
+                             f"to the plain version: {sorted(unchecked, key=str)}")
+    for impl, run in runs.items():
+        log(f"{what}, prefill attention {impl} [{card}]: prefill "
+            f"{run['prefill_ms']:.2f} ms; {len(run['dec_ms'])} decode steps, "
+            f"median {statistics.median(run['dec_ms']):.3f} ms, mean "
+            f"{statistics.mean(run['dec_ms']):.3f} ms; peak memory "
+            f"{run['peak_gb']:.3f} GB; K4 launches {run['k4_prefill']} in the "
+            f"prefill, {run['k4_decode']} in decode; cross_kv once")
+    log(f"  K4 shapes (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, q_offset): "
+        f"{pal['k4_shapes']}")
+    worst, gated, later_same, later = first_token_gate(pal, auto, [s] * b)
+    out = {"prompt": s, "batch": b, "new": new, "k4_launches": pal["k4_prefill"],
+           "k4_shapes": {str(k): v for k, v in pal["k4_shapes"].items()},
+           "max_logit_gap": worst, "first_token_gated": gated,
+           "later_tokens_equal": [later_same, later]}
+    for impl, run in runs.items():
+        out[impl] = {"prefill_ms": run["prefill_ms"],
+                     "decode_ms_median": statistics.median(run["dec_ms"]),
+                     "decode_ms_mean": statistics.mean(run["dec_ms"]),
+                     "peak_gb": run["peak_gb"]}
+    return out
+
+
+def xattn_model(np, torch, dev, k4, arch: str, card: str) -> dict:
+    """9a / 9b: one full-width cross-attention config drawn on the card,
+    its memory seeded, its prompt batches through K4 and auto, one
+    prefill profiled."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = get(arch)
+    if arch == "llama3_2_vision_90b":
+        what = (f"{cfg.name} full width, {VLM_LAYERS} of its {cfg.n_layers} "
+                f"layers")
+        cfg = cfg.replace(n_layers=VLM_LAYERS)
+        runs, max_seq = (VLM_RUN,), VLM_MAX_SEQ
+    else:
+        what = f"{cfg.name} full width and depth"
+        runs, max_seq = WHISPER_RUNS, WHISPER_MAX_SEQ
+    params = init_model(torch, dev, cfg, what)
+    live_params(torch, cfg, params, SEED + 95)
+    n_leaves = sum(p.numel() for p in _leaves(params))
+    log(f"{cfg.name}: the reference's param_count {cfg.param_count()} beside "
+        f"{n_leaves} params in the template's leaves (the count leaves out "
+        + ("the decoder's cross stack, the biases and both position tables)"
+           if cfg.family == "encdec" else "the gates)"))
+    b = runs[0][0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 96)
+    t_mem = cfg.encoder_seq or cfg.vision_seq
+    memory = torch.randn((b, t_mem, cfg.d_model), generator=g, device=dev)
+    rng = np.random.default_rng(SEED + 97)
+    model = Model(cfg)
+    warm = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 4))).to(dev)
+    for impl in ("pallas", "auto"):  # load cuBLAS and the kernels, untimed
+        model.prefill(params, warm, memory=memory, impl=impl)
+    torch.cuda.synchronize()
+    out = {"param_count": cfg.param_count(), "leaves": n_leaves, "runs": []}
+    toks = None
+    for bb, s, new in runs:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (bb, s))).to(dev)
+        out["runs"].append(xattn_k4_and_auto(
+            np, torch, dev, k4, cfg, params, memory, toks, new=new,
+            max_seq=max_seq, card=card, what=f"{cfg.name} {s}-token prompts"))
+    prof = xattn_prefill_profile(torch, model, params, toks, memory, max_seq)
+    share = prof["k4_share"]
+    out["prefill_profile"] = prof
+    log(f"{cfg.name} {toks.shape[1]}-token prefill through K4 under "
+        f"torch.profiler [{card}]: device busy {prof['busy_s']:.4f} s, K4 "
+        + ("not measured" if share is None else f"{100 * share:.2f}%")
+        + " of it; by group: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in sorted(prof["groups"].items(),
+                                                key=lambda kv: -kv[1])))
+    del params, memory
+    free_card(torch, cfg.name)
+    out["k4_launches"] = sum(r["k4_launches"] for r in out["runs"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def xattn_path(np, torch, dev, k4, card: str) -> dict:
+    """Phase 9: the cross-attention families through K4."""
+    from repro_torch.configs import reduced
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"9a": xattn_model(np, torch, dev, k4, "whisper_small", card),
+           "9b": xattn_model(np, torch, dev, k4, "llama3_2_vision_90b", card)}
+    t0 = time.perf_counter()
+    out["9c"] = {}
+    for n, arch in enumerate(XATTN_ARCHS):
+        cfg = reduced(arch)
+        k4.LAUNCHES["flash_attention"] = 0
+        res = card_vs_host(np, torch, dev, cfg, SEED + 98 + n, "pallas")
+        want = cfg.n_layers + (cfg.n_encoder_layers + cfg.n_layers
+                               if cfg.family == "encdec" else 0)
+        if k4.LAUNCHES["flash_attention"] != want:
+            raise AssertionError(f"reduced {arch}: K4 launched "
+                                 f"{k4.LAUNCHES['flash_attention']} times, "
+                                 f"expected {want}")
+        log(f"reduced {cfg.name}: card (K4, {want} launches) and host logits "
+            f"agree, prefill + 8 decode steps, max abs gap {res['gap']:.3g} "
+            f"(tolerance {REDUCED_TOL})")
+        out["9c"][arch] = {"gap": res["gap"]}
+    out["9c"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["9d"] = launcher_on_card_and_host("9d", XATTN_LAUNCHER_ARGV)
+    out["9d"]["wall_s"] = time.perf_counter() - t0
+    out["k4_launches"] = {"whisper_small": out["9a"]["k4_launches"],
+                          "llama3_2_vision_90b": out["9b"]["k4_launches"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase 9 walls (s): " + ", ".join(
+        f"{k} {v['wall_s']:.1f}" for k, v in out.items()
+        if isinstance(v, dict) and "wall_s" in v))
+    log(f"phase 9 took {out['wall_s']:.1f} s")
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase of the script and print its wall time."""
     t0 = time.perf_counter()
@@ -2834,10 +3232,10 @@ def phase(name: str, fn, *args, **kw):
 def main(argv) -> int:
     only = None
     if argv:
-        if argv[:1] != ["--only"] or argv[1:] not in (["wis"], ["service"],
-                                                       ["train"], ["models"]):
+        if argv[:1] != ["--only"] or argv[1:] not in (
+                ["wis"], ["service"], ["train"], ["models"], ["xattn"]):
             return fail(f"usage: chip_smoke.py [--only wis|service|train|"
-                        f"models], not {argv}")
+                        f"models|xattn], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -2899,6 +3297,18 @@ def main(argv) -> int:
             model_launches=models["k4_launches"], **k4_row)],
             "models": models}, default=str), flush=True)
         return 0
+    if only == "xattn":  # the build, K4 alone, then the cross-attention families
+        k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
+        xattn = phase("9", xattn_path, np, torch, dev, k4, card)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:108",
+            launches=sum(xattn["k4_launches"].values()),
+            model_launches=xattn["k4_launches"], **k4_row)],
+            "xattn": xattn}, default=str), flush=True)
+        return 0
     if only == "service":  # the build, then the streaming service alone
         service = service_path(dev, k1, k2)
         print(card, flush=True)
@@ -2925,6 +3335,7 @@ def main(argv) -> int:
     service = phase("6", service_path, dev, k1, k2, sim_run=run)
     training = phase("7", training_path, torch, dev, k5, k5_ref, card)
     models = phase("8", models_path, np, torch, dev, k4, card)
+    xattn = phase("9", xattn_path, np, torch, dev, k4, card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -2956,7 +3367,7 @@ def main(argv) -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:108",
         launches=hybrid["k4_launches"],
-        model_launches=models["k4_launches"], **k4_row))
+        model_launches=models["k4_launches"] | xattn["k4_launches"], **k4_row))
     kernels.append(dict(
         name="wis_dp", route="cuda",
         source="src/repro_torch/kernels/csrc/wis_batch.cu",

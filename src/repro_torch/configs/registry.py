@@ -1,8 +1,8 @@
 """Architecture registry: the configs the port serves + reduced variants.
 
 The port's counterpart of ``repro/configs/registry.py``.  ``ARCH_NAMES``
-lists the reference's ten configs; ``PORTED`` the ones whose family the
-port runs (all but the ``vlm`` and ``encdec`` configs).  ``get`` / ``reduced`` / ``info`` of another name raise.
+lists the reference's ten configs, and every one has a module in the port
+(``PORTED``).  ``get`` / ``reduced`` / ``info`` of another name raise.
 
 ``get`` returns the bare ``ModelConfig`` where the reference's returns
 ``(cfg, info)``; the ``ArchInfo`` (the optimizer the launcher trains with,
@@ -66,20 +66,14 @@ class ArchInfo:
     notes: str = ""
 
 
-#: configs with a module in the port (their families run here)
-PORTED = ("starcoder2_15b", "qwen1_5_4b", "qwen3_14b", "llama3_405b",
-          "falcon_mamba_7b", "olmoe_1b_7b", "granite_moe_3b_a800m",
-          "recurrentgemma_9b")
+#: configs with a module in the port: all of the reference's
+PORTED = tuple(ARCH_NAMES)
 
 
 def _module(name: str):
     name = name.replace("-", "_").replace(".", "_")
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {', '.join(ARCH_NAMES)}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; the port serves "
-            f"{', '.join(PORTED)} (see ROADMAP.md §1)")
     return importlib.import_module(f".{name}", __package__)
 
 

@@ -1,5 +1,7 @@
-"""Serving launcher: continuous-batching engine for any ported
-decoder-only arch (``configs.registry.PORTED``).
+"""Serving launcher: continuous-batching engine for any decoder-only arch
+of ``configs.registry.PORTED``; the ``encdec`` and ``vlm`` configs are
+refused as the reference refuses them (the engine has no memory input;
+``Model.prefill(memory=)`` and ``decode_step(cross_stack=)`` drive them).
 
 The port's counterpart of ``repro/launch/serve.py``, with the same flags
 plus ``--device`` (``cuda`` unless ``cpu`` is asked for) and
@@ -47,8 +49,12 @@ def main(argv=None):
                     help="emit a machine-readable result line")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = reduced(args.arch) if args.reduced else get(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("serve.py demo drives decoder-only archs; "
+                         "enc-dec/vlm serving needs a memory input per "
+                         "request (see serving.engine prefill hooks)")
+    device = resolve_device(args.device)
     model = Model(cfg)
     params = model.init(args.seed, device=device)
     eng = ServingEngine(model, params, ServeConfig(

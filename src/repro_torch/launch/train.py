@@ -62,7 +62,9 @@ class TrainRun:
         self.state = {"params": params, "opt": self.opt.init(params)}
         self.step_fn = make_train_step(self.model, self.opt)
         self.data = SyntheticTokens(DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            memory_seq=cfg.encoder_seq or cfg.vision_seq,
+            d_model=cfg.d_model if cfg.family in ("encdec", "vlm") else 0))
         self.losses: List[float] = []
         self.grad_norms: List[float] = []
         self.step_s: List[float] = []

@@ -1,9 +1,8 @@
 """Model configuration of the families the port runs.
 
 The port's copy of ``repro/models/config.py`` with torch dtypes, cut to the
-fields the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families read.
-``family`` may still name ``vlm`` or ``encdec``; ``Model`` and
-``init_params`` raise for them.
+fields the port's families read (every family of the reference: ``dense``,
+``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``encdec``).
 
 Layers are organized into homogeneous *superblocks* whose params are
 stacked on a leading axis (the port loops over it in Python):
@@ -12,6 +11,8 @@ stacked on a leading axis (the port loops over it in Python):
   ssm       : superblock = 1 mamba block
   hybrid    : superblock = pattern (e.g. rglru, rglru, attn), plus a tail
               stack for the remainder layers
+  vlm       : superblock = (cross_attn_every-1) self blocks + 1 cross block
+  encdec    : separate encoder (bidirectional) and decoder (self+cross) stacks
 
 ``moe_shard`` is carried for the config modules; nothing in the port reads
 it until it shards (``ROADMAP.md`` §1, item 7).
@@ -68,6 +69,15 @@ class ModelConfig:
     pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
     lru_width: int = 0  # 0 → d_model
 
+    # -- encoder-decoder (whisper) --------------------------------------------------
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0  # stubbed frontend length (whisper: 1500 frames)
+    max_pos_embed: int = 0  # >0 → learned/sinusoidal pos table (no RoPE)
+
+    # -- VLM (cross-attention image layers) -------------------------------------------
+    cross_attn_every: int = 0  # 5 → one cross layer per 5
+    vision_seq: int = 0  # stubbed patch-embedding length
+
     # -- numerics / sharding ----------------------------------------------------------
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
@@ -109,6 +119,11 @@ class ModelConfig:
             return ("mamba",)
         if self.family == "hybrid":
             return self.pattern or ("rglru", "rglru", "attn")
+        if self.family == "vlm":
+            k = self.cross_attn_every or 5
+            return ("attn",) * (k - 1) + ("cross",)
+        if self.family == "encdec":
+            return ("attn",)  # decoder superblock; encoder handled separately
         raise ValueError(self.family)
 
     @property
@@ -125,7 +140,11 @@ class ModelConfig:
 
     # ------------------------------------------------------------------
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks), for roofline."""
+        """Approximate parameter count (embeddings + blocks), for roofline.
+
+        The reference's own count: in ``encdec`` it is the encoder and
+        decoder layers at attn + mlp each, without the decoder's cross
+        stack, the biases or the position tables."""
         D, F, V = self.d_model, self.d_ff, self.padded_vocab
         H, Hkv, hd = self.n_heads, self.n_kv_heads, self.hd
         n = V * D * (1 if self.tie_embeddings else 2)  # embed (+unembed)
@@ -144,12 +163,11 @@ class ModelConfig:
             Dm, N, R = self.d_inner, self.ssm_state, self.dt_rank_actual
             per_layer = D * 2 * Dm + Dm * self.ssm_conv + Dm * (R + 2 * N) \
                 + R * Dm + Dm * N + Dm + Dm * D
-        elif self.family in ("dense", "vlm"):
+        elif self.family in ("dense", "vlm", "encdec"):
             per_layer = attn + mlp
-        else:  # encdec: its encoder layers are not carried here
-            raise NotImplementedError(
-                f"param_count of the {self.family!r} family is not ported")
-        return n + self.n_layers * per_layer
+        else:
+            raise ValueError(self.family)
+        return n + (self.n_layers + self.n_encoder_layers) * per_layer
 
     def active_param_count(self) -> int:
         """Active parameters per token (MoE: top-k of experts)."""

@@ -17,7 +17,10 @@ Attention implementations:
                    decode, a ring cache) raises ValueError.  The offset is
                    read from ``q_positions``, not taken as ``T − S`` as the
                    reference does: the two differ whenever the keys are a
-                   cache longer than the prompt (ROADMAP.md §3).
+                   cache longer than the prompt (ROADMAP.md §3).  A call
+                   with ``causal=False`` and no window (an encoder, cross
+                   attention) masks nothing by position: its offset is 0
+                   and the positions are not read.
 """
 from __future__ import annotations
 
@@ -155,7 +158,8 @@ def attention(
     if impl == "auto":
         impl = "full" if (s * t <= 4096 * 4096 or s == 1) else "chunked"
     if impl in ("pallas", "cuda"):
-        q_offset = _one_offset(q_positions, k_positions)
+        positional = causal or window is not None
+        q_offset = _one_offset(q_positions, k_positions) if positional else 0
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, scale=scale, q_offset=q_offset,
@@ -185,14 +189,21 @@ def _act(x, kind: str):
 
 
 def mlp(x, p, *, gated: bool, act: str):
-    """Gated (SwiGLU) or plain two-matrix FFN. x: (B, S, D)."""
+    """Gated (SwiGLU) or plain two-matrix FFN, with whisper's biases
+    (``b_up``, ``b_down``) where ``p`` has them. x: (B, S, D)."""
     if gated:
         g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
         u = torch.einsum("bsd,df->bsf", x, p["w_up"])
         h = _act(g, act) * u
     else:
-        h = _act(torch.einsum("bsd,df->bsf", x, p["w_up"]), act)
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+        u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+        if "b_up" in p:
+            u = u + p["b_up"]
+        h = _act(u, act)
+    out = torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
 
 
 # ---------------------------------------------------------------------------

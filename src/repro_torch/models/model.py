@@ -1,14 +1,18 @@
 """Model assembly: one Model class for the families the port runs.
 
-The port's counterpart of ``repro/models/model.py`` for ``dense``,
-``moe``, ``ssm`` and ``hybrid``; ``vlm`` and ``encdec`` raise
-``NotImplementedError`` (``ROADMAP.md`` §1).
+The port's counterpart of ``repro/models/model.py`` for every family:
+``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm`` (gated cross-attention
+superblocks over a patch memory) and ``encdec`` (a bidirectional encoder
+over a frame memory, a decoder with self and cross attention, LayerNorm).
 
 Execution paths:
   * ``forward``      — full-sequence logits (training / eval) and the MoE
                        aux loss summed over the layers; ``loss_fn`` is the
                        mean cross entropy plus ``router_aux_weight`` × aux.
-  * ``prefill``      — full sequence, returns last-position logits + cache.
+  * ``prefill``      — full sequence, returns last-position logits, cache
+                       and the cross-attention K/V stack (``vlm`` and
+                       ``encdec``: computed once from ``memory``, reused by
+                       every decode step; None in the other families).
   * ``decode_step``  — one token against a cache (serving inner loop).
 
 Params keep the reference's stacked layout: each superblock leaf has a
@@ -23,8 +27,10 @@ place, and returns it: a full width mamba state is 134 MB a step that
 need not be copied.
 
 Attention caches:
-  * dense / moe self-attn — linear cache (B, Tmax, Hkv, hd), written at
-    ``index``; the start is clamped as ``dynamic_update_slice`` clamps it.
+  * dense / moe / enc-dec / vlm self-attn — linear cache (B, Tmax, Hkv,
+    hd), written at ``index``; the start is clamped as
+    ``dynamic_update_slice`` clamps it.  Cross-attention blocks hold no
+    cache: their K/V is the prefill's ``cross_stack``.
   * hybrid local-attn — RING cache of size ``window`` with per-slot
     positions (stale slots overwritten; masking uses stored positions).
   * mamba / rglru — O(1) recurrent state (conv tail + ssm/lru state).
@@ -38,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from .config import ModelConfig
-from .layers import attention, mlp, rms_norm, rope, softmax_cross_entropy
+from .layers import (attention, layer_norm, mlp, rms_norm, rope,
+                     softmax_cross_entropy)
 from .moe import moe_ffn
 from .params import PORTED_FAMILIES, init_params
 from .rglru import rglru_decode_step, rglru_seq
@@ -61,14 +68,36 @@ def _write(dst: Dict, src: Dict) -> None:
             dst[k].copy_(v)
 
 
+def _take(table, ids):
+    """Rows of ``table`` as ``jnp.take`` gives them: a negative id counts
+    from the end, an id past either end reads NaN."""
+    n = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    inside = (ids >= 0) & (ids < n)
+    return torch.where(inside[..., None], table[ids.clamp(0, n - 1)], torch.nan)
+
+
+def _norm(cfg, x, p, name):
+    if cfg.family == "encdec":
+        return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"], cfg.norm_eps)
+    return rms_norm(x, p[f"{name}_scale"], cfg.norm_eps)
+
+
+def _gated(out, gate, dtype):
+    """``out`` × tanh(gate) in float32, cast to ``dtype``, as the
+    reference's float32 gate promotes the product (torch types a bfloat16
+    × 0-dim float32 product bfloat16)."""
+    return (out.float() * torch.tanh(gate)).to(dtype)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, *, scan_impl: Optional[str] = None):
         """``scan_impl`` picks the linear scan of the recurrent blocks
         (``kernels/linear_scan/ops.py``): None runs K5 on the card."""
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family is not ported yet; the port runs "
-                f"{', '.join(PORTED_FAMILIES)} (see ROADMAP.md §1)")
+            raise ValueError(f"unknown family {cfg.family!r}; the port runs "
+                             f"{', '.join(PORTED_FAMILIES)}")
         self.cfg = cfg
         self.scan_impl = scan_impl
 
@@ -92,12 +121,13 @@ class Model:
         return q, k, v
 
     def _self_attn(self, p, h, positions, *, cache=None, index=None,
-                   window=None, impl="auto"):
+                   causal=True, window=None, impl="auto"):
         """Returns the attention output; writes ``cache`` in place."""
         cfg = self.cfg
         q, k, v = self._project_qkv(p, h)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if cfg.family != "encdec":  # whisper: position tables, no RoPE
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
         b, s = k.shape[0], k.shape[1]
 
         k_pos = positions
@@ -138,22 +168,43 @@ class Model:
             k_pos = torch.arange(t, device=k.device).expand(b, t)
 
         out = attention(q, k, v, q_positions=positions, k_positions=k_pos,
-                        causal=True, window=window, impl=impl)
+                        causal=causal, window=window, impl=impl)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    def _mlp_res(self, p, x):
+    def _cross_attn(self, p, h, cross_kv, impl="auto"):
+        """Queries from ``h`` against one layer's precomputed memory K/V,
+        unmasked (the reference passes all-zero positions)."""
+        q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+        if self.cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v = cross_kv["k"], cross_kv["v"]
+        b, s, t = h.shape[0], h.shape[1], k.shape[1]
+        zeros = torch.zeros((), dtype=torch.long, device=h.device)
+        out = attention(q, k, v, q_positions=zeros.expand(b, s),
+                        k_positions=zeros.expand(b, t), causal=False,
+                        impl=impl)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    def _mlp_res(self, p, x, gate=None):
         cfg = self.cfg
-        h = rms_norm(x, p["ln2_scale"], cfg.norm_eps)
-        return x + mlp(h, p["mlp"], gated=cfg.gated_mlp, act=cfg.act)
+        h = _norm(cfg, x, p, "ln2")
+        out = mlp(h, p["mlp"], gated=cfg.gated_mlp, act=cfg.act)
+        if gate is not None:
+            out = _gated(out, gate, x.dtype)
+        return x + out
 
     # =========================================================================
     # one block of a given kind
     # =========================================================================
     def _apply_block(self, kind, p, x, positions, *, cache=None, index=None,
-                     impl="auto", decode=False):
+                     cross_kv=None, impl="auto", decode=False):
         """Returns ``(x, new recurrent state or None, MoE aux loss or None)``."""
         cfg = self.cfg
-        h = rms_norm(x, p["ln1_scale"], cfg.norm_eps)
+        h = _norm(cfg, x, p, "ln1")
+        if kind == "cross":
+            out = self._cross_attn(p["attn"], h, cross_kv, impl=impl)
+            x = x + _gated(out, p["attn"]["gate_attn"], x.dtype)
+            return self._mlp_res(p, x, gate=p["gate_mlp"]), None, None
         if kind in ("attn", "moe"):
             window = cfg.window if cfg.family == "hybrid" else None
             x = x + self._self_attn(p["attn"], h, positions, cache=cache,
@@ -189,85 +240,193 @@ class Model:
     # superblock stack (Python loop over depth)
     # =========================================================================
     def _run_layers(self, stack_params, x, positions, *, names, n_layers,
-                    cache=None, index=None, impl="auto", decode=False,
-                    remat=False):
+                    cache=None, index=None, cross_stack=None, impl="auto",
+                    decode=False, remat=False):
         """Returns ``(x, the MoE blocks' aux losses summed)``; the aux is None
-        where no block made one, and with a cache (serving drops it)."""
+        where no block made one, and with a cache (serving drops it).
+        Superblock ``layer``'s cross block reads layer ``layer`` of
+        ``cross_stack``."""
         remat = remat and cache is None and torch.is_grad_enabled()
         aux = None
         for layer in range(n_layers):
+            ckv = None if cross_stack is None else _index(cross_stack, layer)
             for name in names:
                 kind = name.split("_", 1)[1]
                 p = _index(stack_params[name], layer)
+                c_kv = ckv if kind == "cross" else None
                 if remat:
                     x, aux_l = checkpoint(self._block_out, kind, p, x,
-                                          positions, impl, use_reentrant=False)
+                                          positions, c_kv, impl,
+                                          use_reentrant=False)
                 else:
-                    c = _index(cache[name], layer) if cache is not None else None
+                    c = (_index(cache[name], layer)
+                         if cache is not None and name in cache else None)
                     x, state, aux_l = self._apply_block(
                         kind, p, x, positions, cache=c, index=index,
-                        impl=impl, decode=decode)
+                        cross_kv=c_kv, impl=impl, decode=decode)
                     if state is not None:
                         _write(c, state)
                 if aux_l is not None and cache is None:
                     aux = aux_l if aux is None else aux + aux_l
         return x, aux
 
-    def _block_out(self, kind, p, x, positions, impl):
-        x, _, aux_l = self._apply_block(kind, p, x, positions, impl=impl)
+    def _block_out(self, kind, p, x, positions, cross_kv, impl):
+        x, _, aux_l = self._apply_block(kind, p, x, positions,
+                                        cross_kv=cross_kv, impl=impl)
         return x, aux_l
 
-    def _run_all(self, params, x, positions, *, cache=None, index=None,
-                 impl="auto", decode=False, remat=False):
+    def _run_all(self, params, x, positions, *, cross_stack=None, cache=None,
+                 index=None, impl="auto", decode=False, remat=False):
         """Returns ``(final-normed x, aux loss summed over the layers or
         None)``."""
         cfg = self.cfg
         blocks = params["blocks"]
+        if cfg.family == "encdec":
+            x = self._run_encdec_decoder(
+                params, x, positions, cross_stack,
+                cache=None if cache is None else cache["blocks"]["b0_attn"],
+                index=index, impl=impl, remat=remat)
+            return self._final_norm(params, x), None
         x, aux = self._run_layers(
             blocks, x, positions, names=list(blocks), n_layers=cfg.n_super,
             cache=None if cache is None else cache["blocks"], index=index,
-            impl=impl, decode=decode, remat=remat)
+            cross_stack=cross_stack, impl=impl, decode=decode, remat=remat)
         if "tail" in params:
             x, _ = self._run_layers(
                 params["tail"], x, positions, names=list(params["tail"]),
                 n_layers=1, cache=None if cache is None else cache["tail"],
                 index=index, impl=impl, decode=decode)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+        return self._final_norm(params, x), aux
+
+    def _run_encdec_decoder(self, params, x, positions, cross_stack, *,
+                            cache=None, index=None, impl="auto", remat=False):
+        """The whisper decoder: per layer, causal self attention (writing
+        ``cache`` in place), cross attention over layer l of
+        ``cross_stack``, then the MLP."""
+        remat = remat and cache is None and torch.is_grad_enabled()
+        blocks, cross = params["blocks"]["b0_attn"], params["cross"]
+        for layer in range(self.cfg.n_layers):
+            p_self = _index(blocks, layer)
+            p_cross = _index(cross, layer)
+            ckv = _index(cross_stack, layer)
+            if remat:
+                x = checkpoint(self._decoder_layer, p_self, p_cross, ckv, x,
+                               positions, None, None, impl,
+                               use_reentrant=False)
+            else:
+                c = None if cache is None else _index(cache, layer)
+                x = self._decoder_layer(p_self, p_cross, ckv, x, positions,
+                                        c, index, impl)
+        return x
+
+    def _decoder_layer(self, p_self, p_cross, ckv, x, positions, cache, index,
+                       impl):
+        cfg = self.cfg
+        h = _norm(cfg, x, p_self, "ln1")
+        x = x + self._self_attn(p_self["attn"], h, positions, cache=cache,
+                                index=index, impl=impl)
+        hx = _norm(cfg, x, p_cross, "lnx")
+        x = x + self._cross_attn(p_cross["attn"], hx, ckv, impl=impl)
+        return self._mlp_res(p_self, x)
 
     # =========================================================================
     # embedding / head
     # =========================================================================
-    def embed(self, params, tokens):
+    def embed(self, params, tokens, positions=None):
         """Rows of the (Vp, D) table as ``jnp.take`` gives them: a negative
-        id counts from the end, an id past either end reads NaN."""
-        table = params["embed"]
-        vp = table.shape[0]
-        ids = tokens.long()
-        ids = torch.where(ids < 0, ids + vp, ids)
-        inside = (ids >= 0) & (ids < vp)
-        x = table[ids.clamp(0, vp - 1)].to(self.cfg.dtype)
-        return torch.where(inside[..., None], x, torch.nan)
+        id counts from the end, an id past either end reads NaN.  Where
+        the params hold a position table (whisper's decoder), its rows at
+        ``positions`` are added, read the same way."""
+        dtype = self.cfg.dtype
+        x = _take(params["embed"], tokens).to(dtype)
+        if "pos_embed" in params:
+            x = x + _take(params["pos_embed"], positions).to(dtype)
+        return x
 
     def unembed(self, params, x):
         if self.cfg.tie_embeddings:
             return torch.einsum("bsd,vd->bsv", x, params["embed"])
         return torch.einsum("bsd,dv->bsv", x, params["unembed"])
 
+    def _final_norm(self, params, x):
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return layer_norm(x, params["final_norm"], params["final_norm_bias"],
+                              cfg.norm_eps)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    # =========================================================================
+    # encoder / cross-attention memory
+    # =========================================================================
+    def encode(self, params, frames, *, impl="auto", remat=True):
+        """frames (B, T, D) → the whisper encoder's output (B, T, D):
+        the position table added, bidirectional layers, LayerNorm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        b, t = frames.shape[0], frames.shape[1]
+        x = frames.to(cfg.dtype) + enc["pos_embed"][None, :t].to(cfg.dtype)
+        pos = torch.arange(t, device=x.device).expand(b, t)
+        remat = remat and torch.is_grad_enabled()
+        for layer in range(cfg.n_encoder_layers):
+            p = _index(enc["blocks"], layer)
+            if remat:
+                x = checkpoint(self._encoder_layer, p, x, pos, impl,
+                               use_reentrant=False)
+            else:
+                x = self._encoder_layer(p, x, pos, impl)
+        return layer_norm(x, enc["final_norm"], enc["final_norm_bias"],
+                          cfg.norm_eps)
+
+    def _encoder_layer(self, p, x, pos, impl):
+        h = _norm(self.cfg, x, p, "ln1")
+        x = x + self._self_attn(p["attn"], h, pos, causal=False, impl=impl)
+        return self._mlp_res(p, x)
+
+    def cross_kv(self, params, memory):
+        """The cross-attention K/V of every cross layer from ``memory``
+        (B, T, D): {"k", "v"}, each (L_cross, B, T, Hkv, hd), one einsum
+        over the stacked layer axis."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            stack = params["cross"]["attn"]
+        else:  # vlm
+            stack = params["blocks"][f"b{len(cfg.superblock) - 1}_cross"]["attn"]
+        k = torch.einsum("btd,ldhk->lbthk", memory, stack["wk"])
+        v = torch.einsum("btd,ldhk->lbthk", memory, stack["wv"])
+        if cfg.qkv_bias:
+            k = k + stack["bk"][:, None, None]
+            v = v + stack["bv"][:, None, None]
+        return {"k": k, "v": v}
+
+    def _cross_stack(self, params, memory, impl, remat):
+        """The cross K/V the family's decoder reads, or None."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            enc_out = self.encode(params, memory, impl=impl, remat=remat)
+            return self.cross_kv(params, enc_out)
+        if cfg.family == "vlm":
+            return self.cross_kv(params, memory.to(cfg.dtype))
+        return None
+
     # =========================================================================
     # full forward (training / eval)
     # =========================================================================
-    def forward(self, params, tokens, *, impl="auto", remat=True,
+    def forward(self, params, tokens, *, memory=None, impl="auto", remat=True,
                 positions=None):
         """tokens (B, S) → (logits (B, S, Vp), aux loss: the MoE blocks'
-        sum, 0 in the other families).
+        sum, 0 in the other families).  ``memory`` is the ``vlm`` patch
+        embeddings or the ``encdec`` frames, (B, T, D).
 
         ``remat`` checkpoints each block of the stack (not the tail, as the
-        reference) when autograd records; it changes no value."""
+        reference) and each encoder layer when autograd records; it
+        changes no value."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        x, aux = self._run_all(params, self.embed(params, tokens), positions,
-                               impl=impl, remat=remat)
+        cross_stack = self._cross_stack(params, memory, impl, remat)
+        x, aux = self._run_all(params, self.embed(params, tokens, positions),
+                               positions, cross_stack=cross_stack, impl=impl,
+                               remat=remat)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self.unembed(params, x), aux
@@ -277,11 +436,12 @@ class Model:
     # =========================================================================
     def loss_fn(self, params, batch, *, impl="auto", remat=True):
         """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"},
-        (B, S) integer tensors on the params' device), plus
-        ``router_aux_weight`` × the aux loss in the ``moe`` family; a
-        float32 scalar."""
+        (B, S) integer tensors on the params' device, and "memory" for the
+        ``vlm`` and ``encdec`` families), plus ``router_aux_weight`` × the
+        aux loss in the ``moe`` family; a float32 scalar."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch["tokens"], impl=impl,
+        logits, aux = self.forward(params, batch["tokens"],
+                                   memory=batch.get("memory"), impl=impl,
                                    remat=remat)
         loss = softmax_cross_entropy(logits, batch["labels"],
                                      real_vocab=cfg.vocab_size)
@@ -323,17 +483,20 @@ class Model:
             raise ValueError(kind)
 
         sb = cfg.superblock
+        # cross blocks hold no cache: they read the prefill's cross_stack
         cache = {"blocks": {f"b{i}_{kind}": sub(kind, cfg.n_super)
-                            for i, kind in enumerate(sb)}}
+                            for i, kind in enumerate(sb) if kind != "cross"}}
         if cfg.n_tail:
             cache["tail"] = {f"t{i}_{kind}": sub(kind, 1)
                              for i, kind in enumerate(sb[: cfg.n_tail])}
         return cache
 
-    def decode_step(self, params, token, index, cache, *, impl="auto"):
+    def decode_step(self, params, token, index, cache, *, cross_stack=None,
+                    impl="auto"):
         """token (B,), index scalar or (B,) → (logits (B, Vp), cache).
 
-        The cache is updated in place and returned.
+        The cache is updated in place and returned.  ``cross_stack`` is
+        the one ``prefill`` returned (``vlm`` and ``encdec``).
         """
         b = token.shape[0]
         index = torch.as_tensor(index, device=token.device).long()
@@ -341,21 +504,27 @@ class Model:
             positions = index.expand(b, 1)
         else:
             positions = index[:, None]
-        x = self.embed(params, token[:, None])
-        x, _ = self._run_all(params, x, positions, cache=cache, index=index,
-                             impl=impl, decode=True)
+        x = self.embed(params, token[:, None], positions)
+        x, _ = self._run_all(params, x, positions, cross_stack=cross_stack,
+                             cache=cache, index=index, impl=impl, decode=True)
         return self.unembed(params, x)[:, 0], cache
 
-    def prefill(self, params, tokens, *, impl="auto", max_seq=None):
-        """Run the prompt; returns (last logits, cache, None).
+    def prefill(self, params, tokens, *, memory=None, impl="auto",
+                max_seq=None):
+        """Run the prompt; returns (last logits, cache, cross_stack).
 
         ``max_seq`` sizes the cache for subsequent decode steps (≥ prompt).
-        The third value stands where the reference returns the cross-
-        attention stack of the enc-dec and VLM families.
+        ``memory`` (B, T, D) is the ``vlm`` patch embeddings or the
+        ``encdec`` frames; ``impl`` is the attention of every layer of the
+        prompt, the encoder's and the cross attention's included.  The
+        cross-attention stack is computed once here, for the decode steps
+        to reuse; None in the families without one.
         """
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cache = self.init_cache(b, max_seq or s, device=tokens.device)
-        x, _ = self._run_all(params, self.embed(params, tokens), positions,
-                             cache=cache, index=0, impl=impl)
-        return self.unembed(params, x[:, -1:])[:, 0], cache, None
+        cross_stack = self._cross_stack(params, memory, impl, remat=False)
+        x, _ = self._run_all(params, self.embed(params, tokens, positions),
+                             positions, cross_stack=cross_stack, cache=cache,
+                             index=0, impl=impl)
+        return self.unembed(params, x[:, -1:])[:, 0], cache, cross_stack

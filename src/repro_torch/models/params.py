@@ -1,16 +1,19 @@
 """Parameter templates: one source of truth for shapes, dtypes and inits.
 
-The port's counterpart of ``repro/models/params.py`` for the families the
-port runs (``dense``, ``moe``, ``ssm``, ``hybrid``).  A template is a nested dict of
-``P`` leaves with the reference's shapes -- stacked superblocks carry a
-leading layer axis -- and its init recipes (fan-in normal, ``alog``,
-``dtbias``, ``lam``).  The logical sharding specs are left out until the
-port shards (``ROADMAP.md`` §1).
+The port's counterpart of ``repro/models/params.py`` for every family of
+the reference (``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``,
+``encdec``).  A template is a nested dict of ``P`` leaves with the
+reference's shapes -- stacked superblocks carry a leading layer axis -- and
+its init recipes (fan-in normal, ``alog``, ``dtbias``, ``lam``, ``pos``).
+The logical sharding specs are left out until the port shards
+(``ROADMAP.md`` §1).
 
 ``init_params`` builds every leaf on the device from one seeded
 ``torch.Generator``: the full width is never built on the host.  Its
 numbers differ from ``jax.random``'s for the same seed; the tests carry
 the reference's params over with ``repro_torch.convert.model_params``.
+The sinusoid tables (``pos``) are computed in float64 numpy as the
+reference computes them, so both packages' tables are bit-equal.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
@@ -26,13 +30,13 @@ from .config import ModelConfig
 __all__ = ["P", "build_template", "init_params", "PORTED_FAMILIES"]
 
 #: families whose blocks the port builds and runs
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 @dataclass(frozen=True)
 class P:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | alog | dtbias | lam
+    init: str = "normal"  # normal | zeros | ones | alog | dtbias | lam | pos
     fan_in: Optional[int] = None  # stddev = 1/sqrt(fan_in); default shape[-2]
     dtype: Any = None  # None → cfg.dtype; norms/scalars force f32
 
@@ -42,7 +46,7 @@ class P:
 # ---------------------------------------------------------------------------
 
 
-def _attn_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
+def _attn_tpl(cfg: ModelConfig, L: int, *, cross: bool = False) -> Dict[str, P]:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = {
         "wq": P((L, D, H, hd), fan_in=D),
@@ -57,6 +61,8 @@ def _attn_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     if cfg.qk_norm:
         t["q_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
         t["k_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
+    if cross:
+        t["gate_attn"] = P((L,), init="zeros", dtype=torch.float32)
     return t
 
 
@@ -68,11 +74,18 @@ def _mlp_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     }
     if cfg.gated_mlp:
         t["w_gate"] = P((L, D, F), fan_in=D)
+    if cfg.family == "encdec":  # whisper carries biases
+        t["b_up"] = P((L, F), init="zeros")
+        t["b_down"] = P((L, D), init="zeros")
     return t
 
 
 def _norm_tpl(cfg: ModelConfig, L: int, name: str) -> Dict[str, P]:
-    return {f"{name}_scale": P((L, cfg.d_model), init="zeros", dtype=torch.float32)}
+    D = cfg.d_model
+    t = {f"{name}_scale": P((L, D), init="zeros", dtype=torch.float32)}
+    if cfg.family == "encdec":  # LayerNorm (scale+bias); others are RMSNorm
+        t[f"{name}_bias"] = P((L, D), init="zeros", dtype=torch.float32)
+    return t
 
 
 def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
@@ -137,28 +150,45 @@ def _block_tpl(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
             **_norm_tpl(cfg, L, "ln1"), "rglru": _rglru_tpl(cfg, L),
             **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
         }
-    raise NotImplementedError(
-        f"{kind!r} blocks are not ported yet (see ROADMAP.md §1)")
+    if kind == "cross":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "attn": _attn_tpl(cfg, L, cross=True),
+            **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
+            "gate_mlp": P((L,), init="zeros", dtype=torch.float32),
+        }
+    raise ValueError(kind)
 
 
 def build_template(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet; the port runs "
-            f"{', '.join(PORTED_FAMILIES)} (see ROADMAP.md §1)")
+        raise ValueError(f"unknown family {cfg.family!r}")
     D, Vp = cfg.d_model, cfg.padded_vocab
     tpl: Dict[str, Any] = {
         "embed": P((Vp, D), fan_in=1),
         "final_norm": P((D,), init="zeros", dtype=torch.float32),
     }
+    if cfg.family == "encdec":
+        tpl["final_norm_bias"] = P((D,), init="zeros", dtype=torch.float32)
     if not cfg.tie_embeddings:
         tpl["unembed"] = P((D, Vp), fan_in=D)
+    if cfg.max_pos_embed:
+        tpl["pos_embed"] = P((cfg.max_pos_embed, D), init="pos")
     sb = cfg.superblock
     tpl["blocks"] = {f"b{i}_{kind}": _block_tpl(cfg, kind, cfg.n_super)
                      for i, kind in enumerate(sb)}
     if cfg.n_tail:
         tpl["tail"] = {f"t{i}_{kind}": _block_tpl(cfg, kind, 1)
                        for i, kind in enumerate(sb[: cfg.n_tail])}
+    if cfg.family == "encdec":
+        tpl["encoder"] = {
+            "pos_embed": P((cfg.encoder_seq, D), init="pos"),
+            "blocks": _block_tpl(cfg, "attn", cfg.n_encoder_layers),
+            "final_norm": P((D,), init="zeros", dtype=torch.float32),
+            "final_norm_bias": P((D,), init="zeros", dtype=torch.float32),
+        }
+        # decoder cross-attention stack (parallel to self-attn stack)
+        tpl["cross"] = {**_norm_tpl(cfg, cfg.n_layers, "lnx"),
+                        "attn": _attn_tpl(cfg, cfg.n_layers)}
     return tpl
 
 
@@ -200,6 +230,13 @@ def _init_leaf(p: P, cfg: ModelConfig, gen: torch.Generator,
         u = torch.rand(p.shape, generator=gen, device=device) * (0.999 - 0.9) + 0.9
         a = u ** (1.0 / 8.0)
         return torch.log(a / (1 - a)).to(dtype)
+    if p.init == "pos":  # sinusoidal table, in float64 as the reference
+        s, d = p.shape
+        pos = np.arange(s)[:, None]
+        i = np.arange(d)[None, :]
+        angle = pos / np.power(10000.0, (2 * (i // 2)) / d)
+        tab = np.where(i % 2 == 0, np.sin(angle), np.cos(angle))
+        return torch.from_numpy(tab).to(device=device, dtype=dtype)
     raise ValueError(p.init)
 
 

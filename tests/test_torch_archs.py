@@ -5,11 +5,13 @@ norm, starcoder2's non-gated tanh-GELU MLP, llama3's GQA) are held to the
 reference model as ``tests/test_torch_models.py`` holds the other
 families: forward logits, prefill logits and cache, then decode steps,
 atol 3e-4.  The registry of the port is held to the reference's for the
-six configs this slice adds, field by field, and the launchers run each of
-them on the CPU.
+dense, MoE and cross-attention configs, field by field, and the serving
+launcher runs the decoder-only ones on the CPU (the cross-attention
+families are held to the reference in ``tests/test_torch_xattn.py``).
 """
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,9 @@ from repro_torch.models import Model, ModelConfig
 
 ATOL = 3e-4
 DENSE = ("qwen1_5_4b", "qwen3_14b", "starcoder2_15b", "llama3_405b")
-NEW = DENSE + ("olmoe_1b_7b", "granite_moe_3b_a800m")
+XATTN = ("whisper_small", "llama3_2_vision_90b")
+NEW = DENSE + ("olmoe_1b_7b", "granite_moe_3b_a800m") + XATTN
+DECODER_ONLY = tuple(a for a in NEW if a not in XATTN)
 B, S, PROMPT = 2, 24, 16
 
 
@@ -123,7 +127,33 @@ def test_full_width_param_counts():
     assert get("granite_moe_3b_a800m").padded_vocab == 51_200
 
 
-@pytest.mark.parametrize("arch", NEW)
+def _leaf_count(cfg) -> int:
+    from repro_torch.models.params import P, build_template
+
+    def walk(t):
+        if isinstance(t, P):
+            return math.prod(t.shape)
+        return sum(walk(v) for v in t.values())
+    return walk(build_template(cfg))
+
+
+def test_cross_attention_param_counts():
+    """The reference's ``param_count`` of the two cross-attention configs
+    at full width, beside the leaves their templates hold: whisper's count
+    leaves out the decoder's cross stack, the biases and both position
+    tables, and the VLM's its gates (ROADMAP.md §3, Not faults).  The
+    VLM is served cut to 20 of its 100 layers."""
+    vlm, whisper = get("llama3_2_vision_90b"), get("whisper_small")
+    assert vlm.param_count() == 87_677_730_816
+    assert whisper.param_count() == 251_658_240
+    assert _leaf_count(whisper) == 312_849_408
+    assert _leaf_count(vlm) == 87_679_377_448
+    assert _leaf_count(vlm.replace(n_layers=20)) == 19_227_025_416
+    assert vlm.superblock == ("attn",) * 4 + ("cross",)
+    assert whisper.superblock == ("attn",)
+
+
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_serve_launcher_on_cpu(arch, capsys):
     rc = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--json"])
     assert rc == 0
@@ -155,8 +185,3 @@ def test_train_launcher_olmoe_on_cpu(capsys, tmp_path):
     assert len(losses) == 5 and np.isfinite(losses).all()
     assert "done:" in out
 
-
-@pytest.mark.parametrize("arch", ["llama3_2_vision_90b", "whisper_small"])
-def test_vlm_and_encdec_configs_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get(arch)

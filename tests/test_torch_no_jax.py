@@ -50,7 +50,8 @@ def test_import_leaves_jax_and_reference_out():
                  "core.baselines", "launch.train", "models.moe",
                  "configs.olmoe_1b_7b", "configs.granite_moe_3b_a800m",
                  "configs.qwen3_14b", "configs.qwen1_5_4b",
-                 "configs.starcoder2_15b", "configs.llama3_405b"):
+                 "configs.starcoder2_15b", "configs.llama3_405b",
+                 "configs.whisper_small", "configs.llama3_2_vision_90b"):
         assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
 
 
@@ -105,6 +106,11 @@ def test_cuda_device_without_card_raises(monkeypatch):
         train.main(["--arch", "falcon_mamba_7b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.train(reduced("falcon_mamba_7b"), steps=1)
+    for arch in ("whisper_small", "llama3_2_vision_90b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Model(reduced(arch)).init(0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--reduced", "--steps", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
