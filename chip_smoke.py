@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only train     # phases 1 and 7 alone
     python3 chip_smoke.py --only models    # phases 1, 2d and 8 alone
     python3 chip_smoke.py --only xattn     # phases 1, 2d and 9 alone
+    python3 chip_smoke.py --only mesh      # phases 1, 2 (K1, K2), 3 and 10 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -208,7 +209,30 @@ Phases (any failure exits non-zero and prints no result):
    two configs reduced (float32) on the card through K4 must match the
    host within 1e-4 over a prefill and 8 decode steps; 9d ``python -m
    repro_torch.launch.train --arch whisper_small --reduced --steps 20``
-   on cuda and on cpu: both exit 0, losses within 1e-4.
+   on cuda and on cpu: both exit 0, losses within 1e-4;
+10. the auction mesh (``repro_torch.launch.mesh``): the round's device
+   work split into row shards launched from this one process, held to
+   phase 3.  10a ``make_auction_mesh()`` on the one card is degenerate
+   (one device): phase 3's simulation under it gives phase 3's commit log,
+   summary and launches at phase 3's shapes; a hand-built 3-shard mesh
+   divides no pow2 bucket and falls back to the unsharded launches on a
+   700-bid round.  10b four virtual shards of the card (``devices=[card]
+   * 4``) run phase 3's simulation cuda pipelined and serial: commit logs
+   and summaries equal phase 3's, K1 launches 4x phase 3's at M / 4 rows
+   and K2 4x at W / 4 windows, a dispatch whose rows 4 does not divide
+   counted apart as one unsharded launch (the totals must match that
+   account shape for shape); both walls are printed beside phase 3's,
+   not gated.  10c K1 at M = 2^20, T = 32 and K2 fused at (64, 2048),
+   with and without a transform, and batched at (8, 2048): the 4-shard
+   dispatch bit-equal to one launch and to the plain version, each timed
+   beside one launch (CUDA events).  10d a 2^17-bid round over 24 windows
+   and a second of 2^17 - 4097 bids in the same bucket, ``clear_round``
+   through K1 and K2 on 4 shards and on one launch: identical selections,
+   no build between them; phase 3's small run through the torch backend
+   on 4 shards equals its cuda run.  10e every kernel source was built
+   once in the process (also checked after phase 3's 21 drifting rounds
+   and at the end).  10f pickling a meshed scheduler, or saving it in a
+   ``CheckpointStore``, raises ``ValueError``.
 
 Every phase prints its wall time.
 
@@ -1184,15 +1208,17 @@ def cluster(SliceSpec):
             for g in range(16) for name, cap, units in MIG_PROFILES]
 
 
-def run_sim(core, impl, *, pipeline, device, workload, sim, **sim_kw):
-    """One ``simulate`` run; ``sim_kw`` (faults, checkpoint, ...) passes
-    through.  Its commit log is read from the scheduler that finished the
-    run: the one a ``scheduler_crash`` restored from the store."""
+def run_sim(core, impl, *, pipeline, device, workload, sim, mesh=None,
+            **sim_kw):
+    """One ``simulate`` run, its device work split over ``mesh`` if given;
+    ``sim_kw`` (faults, checkpoint, ...) passes through.  Its commit log is
+    read from the scheduler that finished the run: the one a
+    ``scheduler_crash`` restored from the store."""
     from repro_torch.core.scheduler import SchedulerConfig
 
     cfg = SchedulerConfig.from_policy(
         core.Policy(per_agent_theta=True), score_impl=impl, wis_impl=impl,
-        device=device)
+        device=device, mesh=mesh)
     t0 = time.perf_counter()
     res = core.simulate(
         core.JasdaScheduler(workload["slices"](core.SliceSpec), cfg),
@@ -1245,10 +1271,16 @@ def main_path(torch, dev, k1, k2):
 
     k1.LAUNCHES["jasda_score"] = 0
     k2.LAUNCHES["wis_batch"] = 0
+    k1.SHAPES.clear()
+    k2.SHAPES.clear()
     cuda_serial = run_sim(core, "cuda", pipeline=False, device=dev,
                           workload=workload, sim=sim)
     serial_launches = {"jasda_score": k1.LAUNCHES["jasda_score"],
                        "wis_batch": k2.LAUNCHES["wis_batch"]}
+    cuda_pipe["shapes"] = shapes
+    cuda_pipe["serial"] = {
+        "launches": serial_launches, "wall_s": cuda_serial["wall_s"],
+        "shapes": {"jasda_score": dict(k1.SHAPES), "wis_batch": dict(k2.SHAPES)}}
     if not all(serial_launches.values()):
         raise AssertionError(f"serial run skipped a kernel: {serial_launches}")
     log(f"main path cuda serial: launches {serial_launches}, "
@@ -1298,6 +1330,7 @@ def main_path(torch, dev, k1, k2):
         raise AssertionError(f"small run: scores differ by {worst}")
     log(f"small run: {len(on_card['commits'])} commits identical on card and "
         f"host (max score gap {worst})")
+    cuda_pipe["small"] = on_card
     device_share(torch, core, dev, workload, sim)
     return launches, cuda_pipe
 
@@ -3221,6 +3254,364 @@ def xattn_path(np, torch, dev, k4, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the auction mesh
+# ---------------------------------------------------------------------------
+
+#: virtual row shards of the card in 10b-10f
+MESH_SHARDS = 4
+#: 10c's K1 rows (T = 32) and 10d's round (bids over 24 windows; the
+#: second round of the same bucket drops 4097 of them)
+MESH_K1_M = 1 << 20
+MESH_ROUND_M = 1 << 17
+
+
+def check_builds(common, reports: dict, when: str) -> dict:
+    """Each kernel source phase 1 built was built exactly once in this
+    process (the kernels take every shape, bucket and row slice at run
+    time), and nothing else was built."""
+    counts = common.build_counts()
+    want = {name: 1 for name in reports}
+    if counts != want:
+        raise AssertionError(f"{when}: builds {counts}, expected {want}")
+    log(f"builds after {when}: {counts} (each source once)")
+    return counts
+
+
+def mesh_round(np, m: int, n_windows: int, *, rng, n_jobs: int = 23):
+    """``tests/test_sharded_auction.py``'s ``_mk_round``: a random round on
+    float32-exact grids (12-bit utilities, half-step intervals)."""
+    from repro_torch.core.trp import fmp_standard
+    from repro_torch.core.types import Variant, Window
+
+    windows = [Window(f"s{k}", (6 + 2 * (k % 5)) * GB, 0.0, 100.0)
+               for k in range(n_windows)]
+    fmp = fmp_standard(1 * GB, 2 * GB, 0.1 * GB)
+    pool = []
+    for i in range(m):
+        w = windows[int(rng.integers(0, n_windows))]
+        t0 = float(rng.integers(0, 180)) / 2
+        dur = float(rng.integers(2, 40)) / 2
+        if t0 + dur > 100.0:
+            dur = 100.0 - t0
+        if dur <= 0:
+            continue
+        pool.append(Variant(
+            job_id=f"J{i % n_jobs}", slice_id=w.slice_id, t_start=t0,
+            duration=dur, fmp=fmp,
+            local_utility=float(rng.integers(1, 1 << 12)) / (1 << 12),
+            declared_features={}, payload={"work": dur}, variant_id=f"v{i}"))
+    return windows, pool
+
+
+def round_sig(rr):
+    """Byte-level round signature: selections, scores, feedback, totals."""
+    return ([tuple(v.variant_id for v in r.selected) for r in rr.results],
+            tuple(rr.scores), rr.selected_idx, rr.total_score, rr.n_conflicts)
+
+
+def sharded_shapes(shapes: dict, n: int):
+    """The launches ``shapes`` (row count first in each key -> launches)
+    become under an ``n``-shard mesh: a launch whose rows n divides becomes
+    n launches of rows / n; any other stays as it was.  Returns (expected
+    shapes, sharded dispatches, unsharded dispatches)."""
+    out, split, whole = {}, 0, 0
+    for key, count in shapes.items():
+        rows = key[0]
+        if rows % n == 0:
+            new, split = (rows // n,) + tuple(key[1:]), split + count
+            out[new] = out.get(new, 0) + n * count
+        else:
+            out[key] = out.get(key, 0) + count
+            whole += count
+    return out, split, whole
+
+
+def same_run(name: str, run: dict, base: dict) -> None:
+    if run["commits"] != base["commits"]:
+        raise AssertionError(f"{name}: commit log differs from phase 3's")
+    if run["summary"] != base["summary"]:
+        raise AssertionError(f"{name}: summary differs: {run['summary']}")
+
+
+def mesh_account(name: str, launches: dict, shapes: dict, base_shapes: dict,
+                 n: int) -> dict:
+    """Hold a sharded run's launches to phase 3's, split ``n`` ways."""
+    out = {}
+    for kernel in ("jasda_score", "wis_batch"):
+        want, split, whole = sharded_shapes(base_shapes[kernel], n)
+        if shapes[kernel] != want:
+            raise AssertionError(
+                f"{name}: {kernel} launched at {shapes[kernel]}, expected {want}")
+        if launches[kernel] != n * split + whole:
+            raise AssertionError(
+                f"{name}: {kernel} {launches[kernel]} launches, expected "
+                f"{n} x {split} sharded + {whole} unsharded dispatches")
+        out[kernel] = {"launches": launches[kernel], "sharded_dispatches": split,
+                       "unsharded_dispatches": whole}
+    return out
+
+
+def mesh_kernels(np, torch, dev, k1, k2, k1_ref, k2_ref, mesh) -> dict:
+    """10c: K1 and K2 split over ``mesh``'s row shards against one launch,
+    bit for bit, and timed beside it two ways: the dispatch as the round
+    makes it (wrappers, row views, the gather; host launch overhead
+    included) and the raw launches alone, each shard writing its rows of
+    one output (the kernel time the split costs)."""
+    from repro_torch.distributed.sharding import row_slices
+    from repro_torch.kernels.jasda_score import ops as score_ops
+    from repro_torch.kernels.wis_dp import ops as wis_ops
+
+    n = len(mesh.devices)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    m, t = MESH_K1_M, 32
+    args = score_inputs(np, torch, dev, m, t)
+    host = [a.cpu().numpy() for a in args]
+    kw = dict(lam=host[6], capacity=host[7], theta=host[8], impl="cuda",
+              trim=False)
+    whole = score_ops.score_variants(*host[:6], device=dev, **kw)
+    split = score_ops.score_variants(*host[:6], mesh=mesh, **kw)
+    p_score, p_elig, _ = k1_ref.score_variants_reference(
+        *args[:6], lam=args[6], capacity=args[7], theta=args[8])
+    torch.cuda.synchronize()
+    for name, (a, b) in (("sharded", (split, whole)),
+                         ("plain", ((p_score, p_elig), whole))):
+        if ulp_gap(torch, a[0], b[0]) != 0 or not torch.equal(a[1], b[1]):
+            raise AssertionError(f"10c K1 M={m} T={t}: {name} differs from one launch")
+    rows = [r for _, r in row_slices(mesh, n, m)]
+
+    def k1_split():
+        parts = [k1.score_variants_cuda(*[a if i in (2, 3) else a[r]
+                                          for i, a in enumerate(args)])
+                 for r in rows]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    lib1 = k1._lib()
+    out_s, out_e = torch.empty_like(whole[0]), torch.empty_like(whole[1])
+
+    def k1_raw(cuts):
+        for r in cuts:
+            ops = [a if i in (2, 3) else a[r] for i, a in enumerate(args)]
+            lib1.jasda_score_launch(*[o.data_ptr() for o in ops],
+                                    r.stop - r.start, 1, 4, t,
+                                    out_s[r].data_ptr(), out_e[r].data_ptr(),
+                                    stream)
+
+    k1_row = {"shape": {"M": m, "T": t}, "shards": n,
+              "ms": time_ms(torch, lambda: k1.score_variants_cuda(*args),
+                            reps=11, inner=10),
+              "sharded_ms": time_ms(torch, k1_split, reps=11, inner=10),
+              "raw_ms": time_ms(torch, lambda: k1_raw([slice(0, m)]), reps=11,
+                                inner=10),
+              "raw_sharded_ms": time_ms(torch, lambda: k1_raw(rows), reps=11,
+                                        inner=10)}
+    torch.cuda.synchronize()
+    if ulp_gap(torch, out_s, whole[0]) != 0 or not torch.equal(out_e, whole[1]):
+        raise AssertionError("10c K1: the raw row-shard launches differ")
+    out["K1"] = k1_row
+    log(f"10c K1 M={m} T={t}: {n} row shards concatenated bit-equal to one "
+        f"launch and to the plain version; dispatch: one launch "
+        f"{k1_row['ms']:.4f} ms, {n} shards + gather "
+        f"{k1_row['sharded_ms']:.4f} ms; raw launches: one "
+        f"{k1_row['raw_ms']:.4f} ms, {n} shards {k1_row['raw_sharded_ms']:.4f} ms")
+
+    scores = whole[0]
+    lib2 = k2._lib()
+    for n_rows, lanes, form in ((64, 2048, "fused"), (64, 2048, "fused+transform"),
+                                (8, 2048, "batched")):
+        ins = settle_inputs(np, torch, dev, n_rows, lanes, m, SEED + 70 + n_rows)
+        tr = ins["transform"] if form == "fused+transform" else None
+        w = None
+        if form == "batched":
+            w = k2_ref.fused_weights(scores, ins["idx"], ins["mask"])
+
+            def call(mesh_):
+                return wis_ops.wis_settle_batch(w, ins["pred"], impl="cuda",
+                                                device=dev, mesh=mesh_)
+        else:
+            def call(mesh_):
+                return wis_ops.wis_settle_fused(
+                    scores, ins["idx"], ins["mask"], ins["pred"], impl="cuda",
+                    mesh=mesh_, transform=tr)
+        one, four = call(None), call(mesh)
+        w_plain = k2_ref.fused_weights(scores, ins["idx"], ins["mask"], tr)
+        p_sel, p_tot = k2_ref.wis_batch_reference(w_plain, ins["pred"])
+        torch.cuda.synchronize()
+        name = f"10c K2 W={n_rows} L={lanes} {form}"
+        for what, a in (("sharded", four), ("plain", (p_sel, p_tot))):
+            if not torch.equal(a[0], one[0]) or ulp_gap(torch, a[1], one[1]) != 0:
+                raise AssertionError(f"{name}: {what} differs")
+        if not int(one[0].sum().item()):
+            raise AssertionError(f"{name}: empty")
+        sel, tot = torch.empty_like(one[0]), torch.empty_like(one[1])
+        cuts = [r for _, r in row_slices(mesh, n, n_rows)]
+
+        def raw(parts):
+            for r in parts:
+                def ptr(x):
+                    return None if x is None else x[r].data_ptr()
+                lib2.wis_batch_launch(
+                    ptr(w), None if w is not None else scores.data_ptr(),
+                    None if tr is None else tr.data_ptr(),
+                    None if w is not None else ptr(ins["idx"]),
+                    None if w is not None else ptr(ins["mask"]),
+                    ptr(ins["pred"]), r.stop - r.start, lanes,
+                    0 if w is not None else m, sel[r].data_ptr(),
+                    tot[r].data_ptr(), None, stream)
+
+        row = {"ms": time_ms(torch, lambda: call(None), reps=11, inner=10),
+               "sharded_ms": time_ms(torch, lambda: call(mesh), reps=11,
+                                     inner=10),
+               "raw_ms": time_ms(torch, lambda: raw([slice(0, n_rows)]),
+                                 reps=11, inner=10),
+               "raw_sharded_ms": time_ms(torch, lambda: raw(cuts), reps=11,
+                                         inner=10)}
+        torch.cuda.synchronize()
+        if not torch.equal(sel, one[0]) or ulp_gap(torch, tot, one[1]) != 0:
+            raise AssertionError(f"{name}: the raw row-shard launches differ")
+        out[f"K2 {n_rows}x{lanes} {form}"] = row
+        log(f"{name}: {n} row shards (W={n_rows // n}) bit-equal to one launch "
+            f"and to the plain version; dispatch: one launch {row['ms']:.4f} ms, "
+            f"{n} shards + gather {row['sharded_ms']:.4f} ms; raw launches: one "
+            f"{row['raw_ms']:.4f} ms, {n} shards {row['raw_sharded_ms']:.4f} ms")
+    return out
+
+
+def mesh_path(np, torch, dev, k1, k2, k1_ref, k2_ref, common, reports,
+              base: dict) -> dict:
+    """Phase 10: the round sharded over an auction mesh on the card, held
+    to phase 3's run (``base``)."""
+    import pickle
+    import tempfile
+
+    import repro_torch.core as core
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.clearing import clear_round
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.core.scoring import ScoringPolicy
+    from repro_torch.launch.mesh import (AUCTION_AXIS, Mesh, make_auction_mesh,
+                                         mesh_chips)
+
+    out = {}
+    sim = dict(workload=SIM_WORKLOAD, sim=SIM_CONFIG)
+    walls = {"phase 3 pipelined": base["wall_s"],
+             "phase 3 serial": base["serial"]["wall_s"]}
+
+    # 10a: the mesh of every visible card is degenerate on one H100
+    one = make_auction_mesh()
+    if mesh_chips(one) != 1 or one.devices != (dev,):
+        raise AssertionError(f"10a: make_auction_mesh() gave {one}")
+    run, launches, shapes = counted(k1, k2, lambda: run_sim(
+        core, "cuda", pipeline=True, device=dev, mesh=one, **sim))
+    same_run("10a degenerate mesh", run, base)
+    if shapes != base["shapes"]:
+        raise AssertionError(f"10a: launches {shapes} differ from phase 3's")
+    walls["10a degenerate pipelined"] = run["wall_s"]
+    log(f"10a degenerate mesh {one.shape}: commit log and summary equal "
+        f"phase 3's, launches {launches} at phase 3's shapes, "
+        f"{run['wall_s']:.2f} s wall")
+    odd = Mesh((dev,) * 3, (AUCTION_AXIS,), (3,))
+    windows, pool = mesh_round(np, 700, 5, rng=np.random.default_rng(4))
+    sigs, counts = [], []
+    for mesh in (None, odd):
+        k1.SHAPES.clear()
+        k2.SHAPES.clear()
+        rr = clear_round(windows, pool, ScoringPolicy(), score_impl="cuda",
+                         wis_impl="cuda", device=dev, mesh=mesh)
+        sigs.append(round_sig(rr))
+        counts.append((dict(k1.SHAPES), dict(k2.SHAPES)))
+    if sigs[0] != sigs[1] or counts[0] != counts[1]:
+        raise AssertionError("10a: the 3-shard mesh did not fall back identically")
+    log(f"10a hand-built 3-shard mesh: a 700-bid round falls back to the "
+        f"unsharded launches {counts[0]}, selections identical")
+    out["10a"] = {"launches": launches, "wall_s": run["wall_s"]}
+
+    # 10b: four virtual shards on the card, phase 3's workload
+    n = MESH_SHARDS
+    mesh = make_auction_mesh(n, devices=[dev] * n)
+    if mesh_chips(mesh) != n:
+        raise AssertionError(f"10b: {mesh}")
+    runs = {}
+    for pipeline, base_shapes in ((True, base["shapes"]),
+                                  (False, base["serial"]["shapes"])):
+        name = f"10b {n} shards {'pipelined' if pipeline else 'serial'}"
+        run, launches, shapes = counted(k1, k2, lambda: run_sim(
+            core, "cuda", pipeline=pipeline, device=dev, mesh=mesh, **sim))
+        same_run(name, run, base)
+        account = mesh_account(name, launches, shapes, base_shapes, n)
+        walls[name] = run["wall_s"]
+        runs["pipelined" if pipeline else "serial"] = {
+            "wall_s": run["wall_s"], "account": account,
+            "k1_shapes": {str(k): v for k, v in shapes["jasda_score"].items()}}
+        log(f"{name}: commit log ({len(run['commits'])} rows) and summary "
+            f"equal phase 3's; launches {account}; {run['wall_s']:.2f} s wall")
+    out["10b"] = runs
+    log("10b walls (s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+
+    # 10c: kernel level
+    out["10c"] = mesh_kernels(np, torch, dev, k1, k2, k1_ref, k2_ref, mesh)
+
+    # 10d: a large sharded round, twice in one bucket; the torch backend
+    # sharded on the card
+    rng = np.random.default_rng(100)
+    policy = ScoringPolicy()
+    before = common.build_counts()
+    for m in (MESH_ROUND_M, MESH_ROUND_M - 4097):
+        windows, pool = mesh_round(np, m, 24, rng=rng, n_jobs=101)
+        t0 = time.perf_counter()
+        whole = round_sig(clear_round(windows, pool, policy, wis_impl="cuda",
+                                      device=dev))
+        t1 = time.perf_counter()
+        split = round_sig(clear_round(windows, pool, policy, wis_impl="cuda",
+                                      mesh=mesh))
+        t2 = time.perf_counter()
+        if whole != split:
+            raise AssertionError(f"10d: the sharded {len(pool)}-bid round differs")
+        log(f"10d {len(pool)} bids over 24 windows: sharded round identical "
+            f"({sum(map(len, whole[0]))} selected); unsharded {t1 - t0:.2f} s, "
+            f"{n} shards {t2 - t1:.2f} s of host clock")
+        out[f"10d M={len(pool)}"] = {"s": t1 - t0, "sharded_s": t2 - t1}
+    if common.build_counts() != before:
+        raise AssertionError(f"10d rebuilt: {before} -> {common.build_counts()}")
+    small = {"slices": lambda S: [S("s20", 20 * GB, n_chips=4),
+                                  S("s10", 10 * GB, n_chips=2),
+                                  S("s5", 5 * GB, n_chips=1)],
+             "jobs": dict(n_jobs=40, seed=3, arrival_rate=0.3)}
+    torch_split = run_sim(core, "torch", pipeline=True, device=dev, mesh=mesh,
+                          workload=small, sim=dict(t_end=900.0, seed=2))
+    if (torch_split["commits"] != base["small"]["commits"]
+            or torch_split["summary"] != base["small"]["summary"]):
+        raise AssertionError("10d: the sharded torch run differs from phase 3's "
+                             "small cuda run")
+    log(f"10d small run, torch backend on {n} shards of the card: "
+        f"{len(torch_split['commits'])} commits identical to phase 3's cuda run")
+
+    # 10e: builds
+    out["builds"] = check_builds(common, reports, "phase 10")
+
+    # 10f: a meshed scheduler refuses to pickle
+    cfg = SchedulerConfig.from_policy(core.Policy(per_agent_theta=True),
+                                      score_impl="cuda", wis_impl="cuda",
+                                      device=dev, mesh=mesh)
+    sched = core.JasdaScheduler(SIM_WORKLOAD["slices"](core.SliceSpec), cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp)
+        for what, act in (("pickle", lambda: pickle.dumps(sched)),
+                          ("checkpoint", lambda: store.save_state(1, sched))):
+            try:
+                act()
+            except ValueError as exc:
+                if "mesh" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"10f: {what} took a meshed scheduler")
+        if store.latest_step() is not None:
+            raise AssertionError("10f: the store kept a meshed scheduler")
+    log("10f: pickle and the checkpoint store refuse a meshed scheduler")
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase of the script and print its wall time."""
     t0 = time.perf_counter()
@@ -3233,9 +3624,10 @@ def main(argv) -> int:
     only = None
     if argv:
         if argv[:1] != ["--only"] or argv[1:] not in (
-                ["wis"], ["service"], ["train"], ["models"], ["xattn"]):
+                ["wis"], ["service"], ["train"], ["models"], ["xattn"],
+                ["mesh"]):
             return fail(f"usage: chip_smoke.py [--only wis|service|train|"
-                        f"models|xattn], not {argv}")
+                        f"models|xattn|mesh], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -3325,17 +3717,35 @@ def main(argv) -> int:
                                       dict(name="wis_dp", **k3_row)]}),
               flush=True)
         return 0
+    if only == "mesh":  # K1 and K2, the round, then the round sharded
+        del scores
+        launches, run = phase("3", main_path, torch, dev, k1, k2)
+        check_builds(common, reports, "phase 3")
+        mesh = phase("10", mesh_path, np, torch, dev, k1, k2, k1_ref, k2_ref,
+                     common, reports, run)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [
+            dict(name="jasda_score", launches=launches["jasda_score"],
+                 mesh4_launches=mesh["10b"]["pipelined"]["account"]["jasda_score"],
+                 **k1_row),
+            dict(name="wis_batch", launches=launches["wis_batch"],
+                 mesh4_launches=mesh["10b"]["pipelined"]["account"]["wis_batch"],
+                 **k2_row)], "mesh": mesh}, default=str), flush=True)
+        return 0
     k5_row = phase("2c", check_scan_kernel, torch, dev, k5, k5_ref)
     k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
     k3_row = phase("2e", check_dp_kernel, np, torch, dev, k2, k2_ref, k2_row)
     del scores
     launches, run = phase("3", main_path, torch, dev, k1, k2)
+    check_builds(common, reports, "phase 3")
     served = phase("4", serving_path, np, torch, dev, k5, card)
     hybrid = phase("5", hybrid_serving_path, np, torch, dev, k4, k5, card)
     service = phase("6", service_path, dev, k1, k2, sim_run=run)
     training = phase("7", training_path, torch, dev, k5, k5_ref, card)
     models = phase("8", models_path, np, torch, dev, k4, card)
     xattn = phase("9", xattn_path, np, torch, dev, k4, card)
+    mesh = phase("10", mesh_path, np, torch, dev, k1, k2, k1_ref, k2_ref,
+                 common, reports, run)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -3350,6 +3760,7 @@ def main(argv) -> int:
     for k in kernels:
         k["launches_per_round"] = k["launches"] / max(run["rounds"], 1)
         k["service_launches"] = service["6a"]["launches"][k["name"]]
+        k["mesh4_launches"] = mesh["10b"]["pipelined"]["account"][k["name"]]
     kernels.append(dict(
         name="linear_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -3373,6 +3784,7 @@ def main(argv) -> int:
         source="src/repro_torch/kernels/csrc/wis_batch.cu",
         replaces="src/repro/kernels/wis_dp/kernel.py:46",
         library_ms=None, **k3_row))
+    check_builds(common, reports, "every phase")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

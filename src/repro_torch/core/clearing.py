@@ -178,6 +178,7 @@ def clear_round(
     clearing=None,
     wis_impl: Optional[str] = None,
     mesh=None,
+    device=None,
 ) -> RoundResult:
     """Clear one batched auction round over ALL announced windows.
 
@@ -199,17 +200,22 @@ def clear_round(
 
     ``wis_impl`` selects the settle-side WIS backend (overrides
     ``selector``): None = the per-window host loop, "numpy" = batched host
-    float64, "ref"/"pallas" = the device-resident batched settle
-    (``kernels/wis_dp``).  With a device backend the ban-free first WIS
-    pass is FUSED behind the scoring dispatch — selection weights are
-    gathered from the still-in-flight device scores, no host round-trip.
+    float64, "torch"/"cuda" = the device-resident batched settle
+    (``kernels/wis_dp``: the plain torch version or the CUDA kernel).
+    With a device backend the ban-free first WIS pass is FUSED behind the
+    scoring launch — selection weights are gathered from the still-in-
+    flight device scores, no host round-trip.  ``device`` is where the
+    device backends run: the CUDA card unless the caller asks for the CPU
+    (``"cpu"``).
 
-    ``mesh`` (a ``jax.sharding.Mesh``, e.g. ``launch.mesh.
-    make_auction_mesh()``) shards the pooled-bid axis of the scoring
-    dispatch and the window axis of the device settle across devices via
-    ``shard_map`` — byte-identical to single-device clearing (cross-window
-    conflict resolution stays host-side and global).  Only meaningful with
-    a device ``wis_impl``/``score_impl``; ignored by host paths.
+    ``mesh`` (a ``launch.mesh.Mesh``, e.g. ``launch.mesh.
+    make_auction_mesh()``) splits the pooled-bid rows of the scoring launch
+    and the window rows of the device settle into equal shards, one a mesh
+    device, launched from this one process — byte-identical to
+    single-device clearing (cross-window conflict resolution stays
+    host-side and global).  The device backends then run on the mesh's
+    devices.  Only meaningful with a device ``wis_impl``/``score_impl``;
+    ignored by host paths.
 
     Returns a :class:`RoundResult`; ``results`` aligns with ``windows``.
     """
@@ -217,7 +223,7 @@ def clear_round(
     if not windows:
         return RoundResult((), (), (), (), 0.0, 0)
     if wis_impl is not None:
-        selector = make_round_selector(wis_impl, mesh=mesh)
+        selector = make_round_selector(wis_impl, mesh=mesh, device=device)
 
     fit, win_idx, fit_view = assign_bids(windows, variants)
     if not fit:
@@ -229,7 +235,7 @@ def clear_round(
         ages=ages, calibrate=calibrate, impl=score_impl,
         recheck_theta=recheck_theta, per_agent_theta=per_agent_theta,
         grid=grid, grid_cache=grid_cache,
-        view=fit_view, mesh=mesh,
+        view=fit_view, mesh=mesh, device=device,
     )
     backend = clearing if clearing is not None else _default_clearing()
     prefetch = predispatch_settle(

@@ -213,7 +213,8 @@ def pipelined_clear_rounds(
     call — score→clear chain on the CUDA stream — so the settle half
     overlaps the next round's host packing too.  ``device`` is where the
     device backends run (the CUDA card unless the caller asks for the
-    CPU); ``mesh`` sharding is not ported yet and must be None.
+    CPU).  ``mesh`` shards both device launches across an auction mesh
+    (see ``clear_round``).
     """
     results: List[RoundResult] = []
     pending = None  # (windows, fit, win_idx, view, handle, prefetch)

@@ -116,8 +116,12 @@ class SchedulerConfig:
     # knob like score_impl — it changes WHERE clearing runs, never what is
     # selected.
     wis_impl: Optional[str] = None
-    # multi-device sharding of a round's device work: not ported yet, must
-    # stay None (a non-None mesh is refused by JasdaScheduler)
+    # auction mesh (a launch.mesh.Mesh, e.g. launch.mesh.make_auction_mesh):
+    # shards the pooled bid rows of the scoring launch and the window rows
+    # of the batched settle across its devices (byte-identical selections;
+    # only meaningful with a device score_impl / wis_impl).  None = one
+    # device.  The device backends then run on the mesh's devices, and a
+    # ``device`` of another type is refused at construction.
     mesh: Optional[object] = None
     # torch device of the "torch" / "cuda" backends: the CUDA card unless
     # the caller asks for the CPU ("cpu").  "cuda" on a machine without a
@@ -328,15 +332,17 @@ class JasdaScheduler:
             raise TypeError(
                 f"config must be a Policy or SchedulerConfig, got {type(config).__name__}"
             )
-        if self.config.mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded rounds are not ported yet: SchedulerConfig.mesh "
-                "must be None")
         from ..kernels.common import resolve_device
 
-        # where the device backends run; raises now, not mid-run, when the
-        # requested CUDA card is missing
-        self.device = resolve_device(self.config.device)
+        mesh = self.config.mesh
+        if mesh is not None and not hasattr(mesh, "devices"):
+            raise TypeError(
+                "SchedulerConfig.mesh must be a launch.mesh.Mesh, got "
+                f"{type(mesh).__name__}")
+        # where the device backends run (the first mesh device with a
+        # mesh); raises now, not mid-run, when the requested CUDA card is
+        # missing or the device does not match the mesh
+        self.device = resolve_device(self.config.device, mesh)
         self.slices: Dict[str, SliceTimeline] = {
             s.slice_id: SliceTimeline(s) for s in slices
         }
@@ -399,6 +405,7 @@ class JasdaScheduler:
         from .wis import make_round_selector
 
         self._wis_selector = make_round_selector(self.config.wis_impl,
+                                                 mesh=mesh,
                                                  health=self.backend_health,
                                                  device=self.device)
 
@@ -756,6 +763,7 @@ class JasdaScheduler:
                 per_agent_theta=self.policy.per_agent_theta,
                 grid_cache=self._grid_cache,
                 view=prep.view,
+                mesh=self.config.mesh,
                 health=self.backend_health,
                 device=self.device,
             )
@@ -1088,8 +1096,13 @@ class JasdaScheduler:
         simulator state that shares its Variant objects (one combined
         dump) preserves those identities across the boundary, which is
         what makes ``complete()``/``fail()`` identity lookups keep working
-        after a restore.
+        after a restore.  Requires ``config.mesh is None`` (a mesh names
+        devices of this process).
         """
+        if self.config.mesh is not None:
+            raise ValueError(
+                "checkpointing a mesh-sharded scheduler is unsupported: "
+                "meshes are process-bound (set SchedulerConfig.mesh=None)")
         state = self.__dict__.copy()
         state["_commit_index"] = list(self._commit_index.values())
         return state

@@ -321,12 +321,11 @@ def score_round_async(
     ``view`` (types.PoolView aligned with ``variants``) skips the remaining
     per-variant python walks when the caller already built one.
     ``device`` is where the device backends run (None = the CUDA card;
-    ``"cpu"`` only when asked).  ``mesh`` sharding is not ported yet and
-    must be None.
+    ``"cpu"`` only when asked).  ``mesh`` (``launch.mesh.
+    make_auction_mesh``) shards the pooled bid rows of the launch across
+    its devices (``kernels/jasda_score/ops.py::score_variants``); the
+    device backends then run on the mesh's devices.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded scoring is not ported yet (single device only)")
     m = len(variants)
     if m == 0:
         return ScoreHandle(np.zeros(0, dtype=np.float64))
@@ -381,7 +380,7 @@ def score_round_async(
         # plain torch version when the caller asked for the CPU
         from ..kernels.common import resolve_device
 
-        impl = "cuda" if resolve_device(device).type == "cuda" else "torch"
+        impl = "cuda" if resolve_device(device, mesh).type == "cuda" else "torch"
     dev_impl = impl
     if dev_impl != "numpy" and health is not None:
         dev_impl = health.resolve(dev_impl)
@@ -409,6 +408,7 @@ def score_round_async(
                 impl=dev_impl,
                 trim=False,
                 device=device,
+                mesh=mesh,
             )
             return ScoreHandle(scores, m=m)
         except KernelDispatchError as exc:

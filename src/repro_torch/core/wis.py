@@ -395,17 +395,18 @@ class RoundSelector:
         if impl not in ("numpy", "torch", "cuda"):
             raise ValueError(
                 f"wis_impl must be one of 'numpy' | 'torch' | 'cuda', got {impl!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded settle is not ported yet (single device only)")
         self.impl = impl
+        # auction mesh (launch.mesh.make_auction_mesh): shards the window
+        # rows of every batched launch; host backend has nothing to shard
+        self.mesh = mesh if impl in ("torch", "cuda") else None
         # the torch device the device backends run on (the CUDA card unless
-        # the caller asks for the CPU); the host backend needs none
+        # the caller asks for the CPU; the first mesh device with a mesh);
+        # the host backend needs none
         self.torch_device = None
         if impl != "numpy":
             from ..kernels.common import resolve_device
 
-            self.torch_device = resolve_device(device)
+            self.torch_device = resolve_device(device, self.mesh)
         # sticky per-backend health (kernels.common.BackendHealth), shared
         # with the scheduler's scoring dispatches: an injected dispatch
         # fault degrades every future settle down the cuda → torch → numpy
@@ -421,6 +422,8 @@ class RoundSelector:
         return self._effective_impl() in ("torch", "cuda")
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
+        if self.mesh is not None:
+            return f"RoundSelector({self.impl!r}, mesh={dict(self.mesh.shape)})"
         return f"RoundSelector({self.impl!r}, device={self.torch_device})"
 
     def __call__(self, starts, ends, weights):
@@ -578,7 +581,7 @@ class RoundSelector:
             try:
                 sel, _ = wis_ops.wis_settle_batch(
                     wp.astype(np.float32), pp, impl=impl,
-                    device=self.torch_device)
+                    device=self.torch_device, mesh=self.mesh)
                 return sel.to("cpu").numpy()[:r]
             except KernelDispatchError as exc:
                 if self.health is None:
@@ -631,7 +634,7 @@ class RoundSelector:
         try:
             sel, _ = wis_ops.wis_settle_fused(
                 handle.device_scores, idx.astype(np.int32), idx >= 0, pred,
-                impl=self._effective_impl(), transform=tr)
+                impl=self._effective_impl(), mesh=self.mesh, transform=tr)
         except KernelDispatchError as exc:
             # speculation is optional: mark the backend sick and settle
             # without fusion (the settle half re-clears from host scores)
@@ -677,12 +680,10 @@ def make_round_selector(impl: Optional[str], mesh=None, health=None,
     loop per LANE instead of per candidate per window); "torch" / "cuda" →
     the device backends in ``kernels/wis_dp`` (float32 DP, fused score→
     clear launch) on ``device`` (the CUDA card unless the caller asks for
-    the CPU).  ``mesh`` sharding is not ported yet and must be None.
+    the CPU).  ``mesh`` shards the device backends' window rows
+    (``launch.mesh.make_auction_mesh``); host paths ignore it.
     """
     if impl is None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded settle is not ported yet (single device only)")
         return wis_select
     return RoundSelector(impl, mesh=mesh, health=health, device=device)
 

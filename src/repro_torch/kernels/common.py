@@ -167,13 +167,23 @@ def cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, mesh=None) -> torch.device:
     """The torch device an entry point runs on: the card unless asked.
 
     ``None`` means ``"cuda"``.  A CUDA device on a machine without a card
     raises: the port never moves a device run to the host behind the
-    caller's back.
+    caller's back.  With an auction ``mesh`` (``launch/mesh.py``) the
+    device backends run on the mesh's devices and gather their results on
+    ``mesh.devices[0]``, which is returned; a ``device`` of another type
+    than that one raises ``ValueError``.
     """
+    if mesh is not None:
+        first = mesh.devices[0]
+        if device is not None and torch.device(device).type != first.type:
+            raise ValueError(
+                f"device {str(device)!r} does not match the mesh's devices "
+                f"({str(first)!r})")
+        device = first
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not cuda_available():
         raise RuntimeError(

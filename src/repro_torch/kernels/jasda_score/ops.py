@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ...distributed.sharding import sharded_launch
 from ..common import build_counts as _build_counts
 from ..common import check_dispatch_fault, resolve_device
 from .kernel import LAUNCHES as _CUDA_LAUNCHES
@@ -119,12 +120,21 @@ def score_variants(
     BUCKET-PADDED tensors instead (padded rows score 0 / ineligible by
     construction): the fused settle gathers from that shape-stable form.
     Nothing is synchronised: the tensors are in flight on the current
-    stream.  ``mesh`` (multi-device sharding) is not ported yet and raises.
+    stream.
+
+    ``mesh`` (a 1-axis auction mesh from ``launch.mesh.make_auction_mesh``)
+    splits the padded pool rows into equal shards, one a mesh device, and
+    launches each on its device; the per-row operands (features, FMP
+    grids, λ, capacity, θ) are split, α and β replicated.  Scoring is
+    row-independent, so the sharded launch is byte-identical to the
+    single-device one; M-bucketing stays GLOBAL (pad first, then split),
+    and only the last shards hold pad rows.  The shards' results are
+    concatenated on ``mesh.devices[0]`` (the gather the fused settle
+    reads).  A mesh of one device, or one that does not divide the
+    bucket, takes the unsharded launch.  ``device`` None then means
+    ``mesh.devices[0]``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded scoring is not ported yet (single device only)")
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     if impl is None:
         impl = "cuda" if dev.type == "cuda" else "torch"
     if impl not in ("cuda", "torch"):
@@ -147,21 +157,31 @@ def score_variants(
         "cap": _per_variant_np(capacity, m, 0.0, m_pad),
         "th": _per_variant_np(theta, m, 0.0, m_pad),
     }
-    # injected faults fire before the device is touched; a real build or
-    # launch failure is a plain RuntimeError and is never caught here
+    # injected faults fire before the device is touched, once a dispatch
+    # and keyed on the global bucket; a real build or launch failure is a
+    # plain RuntimeError and is never caught here
     check_dispatch_fault(impl, "score_variants", (m_pad, host["fj"].shape[1]))
     d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
          for k, v in host.items()}
     end = m if trim else m_pad
+    per_row = {k: v for k, v in d.items() if k not in ("al", "be")}
+    score, elig, p_exceed = sharded_launch(
+        mesh, dev, m_pad, per_row, {"al": d["al"], "be": d["be"]},
+        lambda **shard: _launch_score(impl, shard))
+    return (score[:end], elig[:end],
+            None if p_exceed is None else p_exceed[:end])
+
+
+def _launch_score(impl: str, d: dict):
+    """One launch over the rows of ``d``: (score, elig, p_exceed or None)."""
     if impl == "torch":
-        score, elig, p_exceed = score_variants_reference(
+        return score_variants_reference(
             d["fj"], d["fs"], d["al"], d["be"], d["mu"], d["sg"],
             lam=d["lam"], capacity=d["cap"], theta=d["th"])
-        return score[:end], elig[:end], p_exceed[:end]
     score, elig = score_variants_cuda(
         d["fj"], d["fs"], d["al"], d["be"], d["mu"], d["sg"],
         d["lam"], d["cap"], d["th"])
-    return score[:end], elig[:end], None
+    return score, elig, None
 
 
 def score_variants_numpy(

@@ -16,15 +16,26 @@ reference.
 Backends: ``"cuda"`` is the hand-written kernel (kernel.py), ``"torch"``
 its plain torch version (ref.py); for the single-window forms the
 reference's ``"pallas"`` lands on ``"cuda"`` and ``"ref"`` on ``"torch"``.
-Mesh sharding is not ported yet.
+
+``mesh`` (a 1-axis auction mesh, ``launch/mesh.py``) splits the window
+rows of the batched settle into equal shards, one a mesh device: each
+shard clears its rows independently (the per-row DP never crosses rows),
+so the sharded launch is byte-identical to the single-device one.  The
+fused form keeps the score vector (and transform) whole on every shard's
+device -- a lane of any window may index any pool row -- and splits only
+``idx``, ``mask`` and ``pred``.  Results are concatenated on the first
+mesh device.  A mesh of one device, or one that does not divide the
+rows, takes the unsharded launch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...distributed.sharding import sharded_launch
 from ..common import build_counts as _build_counts
 from ..common import check_dispatch_fault, resolve_device
 from .kernel import LAUNCHES as _CUDA_LAUNCHES
@@ -59,10 +70,15 @@ def _on(x, dtype, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device=dev, dtype=dtype)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded settle is not ported yet (single device only)")
+def _launch_settle(impl: str, p, *, w=None, scores=None, idx=None,
+                   mask=None, transform=None):
+    """One launch over the rows of ``p``: (sel, totals)."""
+    if impl == "torch":
+        if w is None:
+            w = fused_weights(scores, idx, mask, transform)
+        return wis_batch_reference(w, p)
+    return wis_batch_cuda(p, weights=w, scores=scores, idx=idx, mask=mask,
+                          transform=transform)
 
 
 def wis_settle_batch(weights, pred, *, impl: Optional[str] = None,
@@ -72,18 +88,17 @@ def wis_settle_batch(weights, pred, *, impl: Optional[str] = None,
     Rows are windows, lanes candidates sorted ascending by end time (the
     host pack in core/wis.py produces the layout); padded / banned lanes
     carry weight 0 and are never selected under the strict ``>`` rule.
-    Returns torch tensors on ``device`` (the card unless asked), in flight.
+    Returns torch tensors on ``device`` (the card unless asked; the first
+    mesh device with a ``mesh``), in flight.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     impl = _impl_for(impl, dev)
     shape = tuple(int(s) for s in np.shape(weights))
     check_dispatch_fault(impl, "wis_settle_batch", shape)
     w = _on(weights, torch.float32, dev)
     p = _on(pred, torch.int32, dev)
-    if impl == "torch":
-        return wis_batch_reference(w, p)
-    return wis_batch_cuda(p, weights=w)
+    return sharded_launch(mesh, dev, int(p.shape[0]), {"p": p, "w": w}, {},
+                          functools.partial(_launch_settle, impl))
 
 
 def wis_settle_fused(scores, idx, mask, pred, *, impl: Optional[str] = None,
@@ -99,7 +114,6 @@ def wis_settle_fused(scores, idx, mask, pred, *, impl: Optional[str] = None,
     score -- the clearing policy's selection transform.  Returns the
     in-flight (sel, totals) pair.
     """
-    _no_mesh(mesh)
     if not isinstance(scores, torch.Tensor):
         raise TypeError("wis_settle_fused gathers from the scoring launch's "
                         "torch tensor")
@@ -112,9 +126,10 @@ def wis_settle_fused(scores, idx, mask, pred, *, impl: Optional[str] = None,
     msk = _on(mask, torch.bool, dev)
     p = _on(pred, torch.int32, dev)
     tr = None if transform is None else _on(transform, torch.float32, dev)
-    if impl == "torch":
-        return wis_batch_reference(fused_weights(scores, i, msk, tr), p)
-    return wis_batch_cuda(p, scores=scores, idx=i, mask=msk, transform=tr)
+    return sharded_launch(mesh, dev, int(p.shape[0]),
+                          {"p": p, "idx": i, "mask": msk},
+                          {"scores": scores, "transform": tr},
+                          functools.partial(_launch_settle, impl))
 
 
 _DP_ALIASES = {"pallas": "cuda", "ref": "torch"}

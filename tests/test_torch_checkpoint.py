@@ -415,3 +415,19 @@ def test_chaos_seeded_plan_matches_reference(tmp_path):
                        checkpoint=RefStore(str(tmp_path / "chaos_ref")),
                        checkpoint_every=20)
     assert results[False] == results[True] == _key(ref)
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_checkpoint_ignores_partial_writes(pkg, tmp_path):
+    """``tests/test_training_substrate.py``'s test through each store: a
+    torn write of a newer step (its ``.tmp`` directory) stays invisible,
+    for the array path and the pickle path."""
+    store = (RefStore if pkg == "ref" else CheckpointStore)(str(tmp_path))
+    zeros = jnp.zeros(3) if pkg == "ref" else torch.zeros(3)
+    store.save(5, {"x": zeros}, blocking=True)
+    os.makedirs(tmp_path / "step_9.tmp")
+    assert store.latest_step() == 5
+    store.save_state(7, {"t": 7.0})
+    os.makedirs(tmp_path / "step_11.tmp")
+    assert store.latest_step() == 7
+    assert store.restore_state() == ({"t": 7.0}, 7)

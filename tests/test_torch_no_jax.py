@@ -10,7 +10,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -51,7 +52,8 @@ def test_import_leaves_jax_and_reference_out():
                  "configs.olmoe_1b_7b", "configs.granite_moe_3b_a800m",
                  "configs.qwen3_14b", "configs.qwen1_5_4b",
                  "configs.starcoder2_15b", "configs.llama3_405b",
-                 "configs.whisper_small", "configs.llama3_2_vision_90b"):
+                 "configs.whisper_small", "configs.llama3_2_vision_90b",
+                 "launch.mesh", "distributed.sharding"):
         assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
 
 
@@ -111,6 +113,17 @@ def test_cuda_device_without_card_raises(monkeypatch):
             Model(reduced(arch)).init(0)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", arch, "--reduced", "--steps", "1"])
+    from repro_torch.launch.mesh import make_auction_mesh, make_production_mesh
+
+    # the auction mesh takes the visible cards, never the host
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_auction_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_auction_mesh(4, devices=["cuda"] * 4)
+    # so does the production mesh: a host mesh only when "cpu" is named
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
+    assert make_production_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
     assert resolve_device("cpu").type == "cpu"
 
 

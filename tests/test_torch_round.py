@@ -147,9 +147,18 @@ def test_calibrator_carried_over():
 
 
 def test_mesh_refused():
-    """Multi-device sharding is not ported yet: a mesh is refused."""
+    """A mesh the scheduler cannot run on is refused at construction: an
+    object that is not a ``launch.mesh.Mesh``, and a mesh whose devices are
+    not of the configured device's type.  (A matching mesh is accepted:
+    ``tests/test_torch_sharded_auction.py``.)"""
+    from repro_torch.launch.mesh import make_auction_mesh
+
     cfg = SchedulerConfig.from_policy(Policy(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
+        JasdaScheduler(_slices(SliceSpec), cfg)
+    cpu_mesh = make_auction_mesh(4, devices=["cpu"] * 4)
+    cfg = SchedulerConfig.from_policy(Policy(), device="cuda", mesh=cpu_mesh)
+    with pytest.raises(ValueError, match="mesh"):
         JasdaScheduler(_slices(SliceSpec), cfg)
 
 
