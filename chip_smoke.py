@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only models    # phases 1, 2d and 8 alone
     python3 chip_smoke.py --only xattn     # phases 1, 2d and 9 alone
     python3 chip_smoke.py --only mesh      # phases 1, 2 (K1, K2), 3 and 10 alone
+    python3 chip_smoke.py --only shard     # phases 1, 2d and 11 alone
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -81,12 +82,13 @@ Phases (any failure exits non-zero and prints no result):
    selection and total;
 3. the auction path: ``simulate`` of a 16-GPU H100 cluster cut into 64 MIG
    slices (3g.40gb + 2g.20gb + 1g.10gb + 1g.10gb per GPU) against a
-   backlog of 500 jobs, through the CUDA kernels pipelined and serial and
-   through the plain torch versions on the card.  Launch counters are reset
-   just before the pipelined run and read just after; commit logs and
-   summaries must be identical across the three runs, no backend may be
-   marked failed, and a small seeded run on the card must match the same
-   run on the host;
+   backlog of 500 jobs, through the CUDA kernels pipelined and serial, and
+   over its first four rounds (to t = 3, M bucket 32768 among them)
+   through the plain torch versions on the card and the kernels again.  Launch counters are reset just before
+   the pipelined run and read just after; commit logs and summaries must
+   be identical between the runs of one horizon, no backend may be marked
+   failed, and a small seeded run on the card must match the same run on
+   the host;
 4. the serving path: falcon-mamba-7b at full width (64 layers, d_model
    4096, bfloat16, vocab 65,024), initialised on the card from a seed,
    serves 8 seeded greedy requests of 128-1024 prompt tokens and 32 new
@@ -232,7 +234,25 @@ Phases (any failure exits non-zero and prints no result):
    on 4 shards equals its cuda run.  10e every kernel source was built
    once in the process (also checked after phase 3's 21 drifting rounds
    and at the end).  10f pickling a meshed scheduler, or saving it in a
-   ``CheckpointStore``, raises ``ValueError``.
+   ``CheckpointStore``, raises ``ValueError``;
+11. the model half of sharding and the dry-run tools.  11a builds
+   ``ShardingRules`` with the dry run's ``build_rules`` on a (data=2,
+   model=2) mesh of four virtual shards of the card, and runs full-width
+   qwen1.5-4b (headdim: the Ulysses branch) and olmoe-1b-7b (heads, the
+   expert-sharded MoE) through one 2048-token prefill through K4 and 4
+   decode steps, with the rules and without: logits and caches bit-equal,
+   K4 launched once a layer in each prefill at shapes 2d holds, and every
+   model-sharded param dim divides the model axis (16).  11b runs ``python
+   -m repro_torch.launch.dryrun`` for every arch and shape on the
+   single-pod mesh (one process an arch, all started together, under a
+   wall limit) and ``python -m repro_torch.launch.report`` over the rows,
+   printing its tables: no cell errs, long_500k is skipped where the
+   reference skips it, flops_per_device x chips equals ``analytic_cost``
+   and the meta run's FLOP count falls in ``flop_counter_band``.  11c
+   prints the MFU (model FLOPs over the time at 989 TFLOP/s) and the share
+   of the analytic bound (``launch/roofline.py``'s H100 constants) of
+   phase 8c's qwen3-14b 4096-token K4 prefill and phase 7c's falcon-mamba-7b
+   train step: each share at most 1.05 (skipped under ``--only shard``).
 
 Every phase prints its wall time.
 
@@ -242,6 +262,7 @@ nothing on the host in its place.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -273,6 +294,39 @@ def log(msg: str) -> None:
 def fail(msg: str) -> int:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+@contextlib.contextmanager
+def collector_off():
+    """Collect, then keep Python's cyclic collector off while two paths are
+    timed against each other, as ``timeit`` does.  A generation-2 pass walks
+    the whole heap the earlier phases keep (phase 3's run among it), so it
+    stalls whichever path happens to be running: neither path's cost.  The
+    entry collect's time is printed: it is what such a pass costs."""
+    t0 = time.perf_counter()
+    n = gc.collect()
+    log(f"  collector off for the timed runs; the collect before them freed "
+        f"{n} objects in {1e3 * (time.perf_counter() - t0):.1f} ms")
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
+def release_profiler() -> None:
+    """Free a finished ``torch.profiler`` run now.  The ``profile`` object
+    sits in a reference cycle, so what it recorded waits for a generation-2
+    collection, which takes seconds, and the first model call after that
+    freeing runs slow: left to chance, both land on some later timing.
+    Call it once the caller holds no reference to the profiler; the
+    freeing's time is printed, and the next model call pays the rest."""
+    t0 = time.perf_counter()
+    n = gc.collect()
+    log(f"  profiler results freed: {n} objects in "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
 
 
 def card_line() -> str:
@@ -748,7 +802,8 @@ def check_scan_kernel(torch, dev, k5, ref):
 #: max_seq past the prompt (starcoder2, granite and qwen3's longest); and
 #: phase 9's: whisper-small's encoder, cross and decoder self attention
 #: (224-token and 4-token prompts), llama-3.2-vision's cross and self
-#: attention
+#: attention; phase 11a's prefills of qwen1.5-4b and olmoe-1b-7b, whose
+#: keys run 4 decode steps past the prompt
 ATTN_CASES = (
     (1, 16, 1, 1024, 1024, 256, "bfloat16", True, 2048, 0),
     (1, 16, 1, 2500, 2500, 256, "bfloat16", True, 2048, 0),
@@ -773,6 +828,8 @@ ATTN_CASES = (
     (2, 64, 8, 2048, 2112, 128, "bfloat16", True, None, 0),
     (4, 12, 12, 4, 448, 64, "bfloat16", True, None, 0),
     (4, 12, 12, 4, 1500, 64, "bfloat16", False, None, 0),
+    (1, 20, 20, 2048, 2052, 128, "bfloat16", True, None, 0),
+    (1, 16, 16, 2048, 2052, 128, "bfloat16", True, None, 0),
 )
 ATTN_MAIN = ATTN_CASES[2]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
@@ -1243,6 +1300,10 @@ SIM_WORKLOAD = {"slices": cluster,
                 "jobs": dict(n_jobs=500, seed=0, arrival_rate=100.0,
                              mem_range_gb=(2.0, 36.0))}
 SIM_CONFIG = dict(t_end=20.0, seed=1)
+#: the plain torch versions on the card take ~8x the kernels' wall, most
+#: of it in the early rounds, whose pools are the largest: they replay the
+#: first four rounds (to M bucket 32768), against the kernels there
+TORCH_SIM_CONFIG = dict(SIM_CONFIG, t_end=3.0)
 
 
 def main_path(torch, dev, k1, k2):
@@ -1289,20 +1350,28 @@ def main_path(torch, dev, k1, k2):
     k1.LAUNCHES["jasda_score"] = 0
     k2.LAUNCHES["wis_batch"] = 0
     torch_run = run_sim(core, "torch", pipeline=True, device=dev,
-                        workload=workload, sim=sim)
+                        workload=workload, sim=TORCH_SIM_CONFIG)
     if k1.LAUNCHES["jasda_score"] or k2.LAUNCHES["wis_batch"]:
         raise AssertionError("the plain torch run launched a CUDA kernel")
-    log(f"main path torch on the card: {torch_run['wall_s']:.2f} s wall")
+    cuda_half = run_sim(core, "cuda", pipeline=True, device=dev,
+                        workload=workload, sim=TORCH_SIM_CONFIG)
+    log(f"main path to t = {TORCH_SIM_CONFIG['t_end']}: torch on the card "
+        f"{torch_run['rounds']} rounds (at most {torch_run['max_bids']} bids "
+        f"a round), {torch_run['wall_s']:.2f} s wall; "
+        f"cuda pipelined {cuda_half['wall_s']:.2f} s wall")
 
-    for name, other in (("cuda serial", cuda_serial), ("torch", torch_run)):
-        if other["commits"] != cuda_pipe["commits"]:
+    for name, run, other in (("cuda serial", cuda_pipe, cuda_serial),
+                             ("torch", cuda_half, torch_run)):
+        if other["commits"] != run["commits"]:
             raise AssertionError(f"{name} commit log differs from cuda pipelined")
-        if other["summary"] != cuda_pipe["summary"]:
+        if other["summary"] != run["summary"]:
             raise AssertionError(f"{name} summary differs: {other['summary']}")
-    if not cuda_pipe["commits"]:
-        raise AssertionError("the main path committed nothing")
-    log(f"commit logs ({len(cuda_pipe['commits'])} rows) and summaries "
-        "identical across cuda pipelined, cuda serial and torch on the card")
+        if not run["commits"]:
+            raise AssertionError(f"the main path committed nothing ({name})")
+    log(f"commit logs ({len(cuda_pipe['commits'])} rows; "
+        f"{len(cuda_half['commits'])} to t = {TORCH_SIM_CONFIG['t_end']}) and "
+        f"summaries identical: cuda pipelined and serial; to t = "
+        f"{TORCH_SIM_CONFIG['t_end']}, cuda pipelined and torch on the card")
 
     host = run_sim(core, "numpy", pipeline=False, device="cpu",
                    workload=workload, sim=sim)
@@ -1564,25 +1633,26 @@ def serve_k4_and_auto(np, torch, dev, k4, cfg, params, lens, prompts, *,
     kinds = cfg.superblock * cfg.n_super + cfg.superblock[:cfg.n_tail]
     n_attn = sum(kind in ("attn", "moe") for kind in kinds)
     runs = {}
-    for impl in ("pallas", "auto"):
-        k4.LAUNCHES["flash_attention"] = 0
-        k4.SHAPES.clear()
-        if k5 is not None:
-            k5.LAUNCHES["linear_scan"] = 0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        with RouteRecorder(drops_at) as drops:
-            reqs, t, pre = serve_requests(
-                torch, dev, Model(cfg), params, prompts, max_new=max_new,
-                max_seq=max_seq, attn_impl=impl, cache_leaves=False)
-        runs[impl] = {"reqs": reqs, "t": t,
-                      "logits": [x[0][0].float() for x in pre],
-                      "k4": k4.LAUNCHES["flash_attention"],
-                      "k4_shapes": dict(k4.SHAPES),
-                      "k5": None if k5 is None else k5.LAUNCHES["linear_scan"],
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "drops": drops}
-        del pre
+    with collector_off():
+        for impl in ("pallas", "auto"):
+            k4.LAUNCHES["flash_attention"] = 0
+            k4.SHAPES.clear()
+            if k5 is not None:
+                k5.LAUNCHES["linear_scan"] = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with RouteRecorder(drops_at) as drops:
+                reqs, t, pre = serve_requests(
+                    torch, dev, Model(cfg), params, prompts, max_new=max_new,
+                    max_seq=max_seq, attn_impl=impl, cache_leaves=False)
+            runs[impl] = {"reqs": reqs, "t": t,
+                          "logits": [x[0][0].float() for x in pre],
+                          "k4": k4.LAUNCHES["flash_attention"],
+                          "k4_shapes": dict(k4.SHAPES),
+                          "k5": None if k5 is None else k5.LAUNCHES["linear_scan"],
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "drops": drops}
+            del pre
     pal, auto = runs["pallas"], runs["auto"]
     n_tok = sum(len(r.output) for r in pal["reqs"])
     for impl, run in runs.items():
@@ -1835,18 +1905,26 @@ def longest_prefill_ms(torch, dev, model, params, prompt, max_seq: int,
     pallas, ...) between device synchronises, as the engine calls it; the
     median of each, and the samples.  Beside the serving runs' one prefill
     a path, these are later calls of the same shape: their gap to the
-    serving run's is what the first call in the run costs."""
+    serving run's is what the first call in the run costs.  One untimed
+    call through K4 goes first (``first_ms``): it pays for what the serving
+    profile before it freed (``release_profiler``)."""
     toks = torch.from_numpy(prompt).to(dev)[None]
     samples = {"pallas": [], "auto": []}
-    for n in range(turns):
-        for impl in (("pallas", "auto") if n % 2 == 0 else ("auto", "pallas")):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.prefill(params, toks, impl=impl, max_seq=max_seq)
-            torch.cuda.synchronize()
-            samples[impl].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, toks, impl="pallas", max_seq=max_seq)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    with collector_off():
+        for n in range(turns):
+            for impl in (("pallas", "auto") if n % 2 == 0 else ("auto", "pallas")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.prefill(params, toks, impl=impl, max_seq=max_seq)
+                torch.cuda.synchronize()
+                samples[impl].append((time.perf_counter() - t0) * 1e3)
     return {"median": {k: statistics.median(v) for k, v in samples.items()},
-            "samples": samples}
+            "samples": samples, "first_ms": first_ms}
 
 
 def k4_prefill_gates(out: dict, lens) -> None:
@@ -1868,9 +1946,10 @@ def k4_prefill_gates(out: dict, lens) -> None:
     log(f"{lens[i]}-token prefill again, median of "
         f"{len(out['longest_prefill_ms']['samples']['pallas'])} in turns: "
         f"{med['pallas']:.2f} ms through K4, {med['auto']:.2f} ms through auto "
-        f"(samples {out['longest_prefill_ms']['samples']}); the serving run's "
-        f"first prefill exceeds it by {pal_ms - med['pallas']:.2f} / "
-        f"{auto_ms - med['auto']:.2f} ms")
+        f"(samples {out['longest_prefill_ms']['samples']}; an untimed one "
+        f"through K4 before them {out['longest_prefill_ms']['first_ms']:.2f} "
+        f"ms); the serving run's first prefill exceeds it by "
+        f"{pal_ms - med['pallas']:.2f} / {auto_ms - med['auto']:.2f} ms")
     for what, p_ms, a_ms in (("", pal_ms, auto_ms),
                              (" (medians)", med["pallas"], med["auto"])):
         if not p_ms < a_ms:
@@ -1940,6 +2019,8 @@ def serving_profile(torch, dev, model, params, prompts, max_new: int,
         reqs, t, _ = serve_requests(torch, dev, model, params, prompts,
                                     max_new=max_new, **serve_kw)
     events = profiled_events(torch, prof)
+    del prof
+    release_profiler()
     ranges = sorted((t0, t1, name) for name, on_card, t0, t1 in events
                     if not on_card and name in PHASES)
     want = len(t["prefill"]) + len(t["decode"])
@@ -2041,6 +2122,8 @@ def device_share(torch, core, dev, workload, sim) -> None:
     groups = device_seconds(torch, prof, names, lambda key: next(
         (g for g in names if g in key or (g == "memcpy" and "Memcpy" in key)),
         "other"))
+    del prof
+    release_profiler()
     busy = sum(groups.values())
     if busy == 0.0:
         log("device share: not measured (the profiler saw no device time)")
@@ -2499,8 +2582,11 @@ def train_profile(torch, run, step: int, card: str) -> dict:
         run.run_steps(step, 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = profiled_events(torch, prof)
+    del prof
+    release_profiler()
     groups, names = {}, {}
-    for name, on_card, t0, t1 in profiled_events(torch, prof):
+    for name, on_card, t0, t1 in events:
         if not on_card:
             continue
         sec = (t1 - t0) / 1e9
@@ -3040,6 +3126,8 @@ def xattn_prefill_profile(torch, model, params, toks, memory, max_seq: int):
                       max_seq=max_seq)
         torch.cuda.synchronize()
     groups = device_seconds(torch, prof, (), kernel_group)
+    del prof
+    release_profiler()
     busy = sum(groups.values())
     return {"busy_s": busy, "groups": groups,
             "k4_share": groups.get("K4", 0.0) / busy if busy else None}
@@ -3611,6 +3699,299 @@ def mesh_path(np, torch, dev, k1, k2, k1_ref, k2_ref, common, reports,
     log("10f: pickle and the checkpoint store refuse a meshed scheduler")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 11: the model half of sharding, the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+#: 11a: (arch, the attention sharding it exercises), one 2048-token prefill
+#: through K4 and SHARD_DECODE decode steps each, with rules and without
+SHARD_ARCHS = (("qwen1_5_4b", "headdim: the Ulysses branch"),
+               ("olmoe_1b_7b", "heads, expert-sharded MoE (gecd / gecf)"))
+SHARD_PROMPT, SHARD_DECODE = 2048, 4
+#: 11b: the whole dry run's wall limit (s); its cells run in one process
+#: per arch, all started together
+DRYRUN_LIMIT_S = 300
+#: 11c: a share of the bound above this means the count or the constants
+#: are wrong
+SHARE_LIMIT = 1.05
+
+
+def _flat_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k])
+    else:
+        yield tree
+
+
+def sharded_run(torch, dev, k4, model, params, toks, rules) -> dict:
+    """One K4 prefill of ``toks`` and SHARD_DECODE greedy decode steps under
+    ``rules`` (None: unconstrained): logits, the final cache, K4's launches
+    and shapes, and the prefill's host-clock ms."""
+    k4.LAUNCHES["flash_attention"] = 0
+    k4.SHAPES.clear()
+    s = toks.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = model.prefill(params, toks, rules=rules, impl="pallas",
+                                     max_seq=s + SHARD_DECODE)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    k4_prefill, shapes = k4.LAUNCHES["flash_attention"], dict(k4.SHAPES)
+    steps = [logits]
+    tok = logits.argmax(-1)
+    for i in range(SHARD_DECODE):
+        logits, cache = model.decode_step(params, tok, s + i, cache,
+                                          rules=rules)
+        steps.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return {"logits": steps, "cache": list(_flat_leaves(cache)),
+            "k4_prefill": k4_prefill,
+            "k4_decode": k4.LAUNCHES["flash_attention"] - k4_prefill,
+            "k4_shapes": shapes, "prefill_ms": prefill_ms}
+
+
+def rules_on_card(np, torch, dev, k4, card: str) -> dict:
+    """11a: full-width prefills through K4 and decode steps with the dry
+    run's sharding rules on a (data=2, model=2) mesh of four virtual
+    shards of the card, against the same calls without rules."""
+    from repro_torch.configs import Shape, get, info
+    from repro_torch.distributed.sharding import resolve_param_specs
+    from repro_torch.launch.dryrun import build_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+
+    mesh = Mesh((dev,) * 4, ("data", "model"), (2, 2))
+    shape = Shape("prefill_2k", "prefill", SHARD_PROMPT, 1)
+    out = {}
+    for arch, what in SHARD_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get(arch)
+        rules = build_rules(cfg, info(arch), shape, mesh, multi_pod=False)
+        model = Model(cfg)
+        resolved = resolve_param_specs(model.specs(), rules)
+        params = init_model(torch, dev, cfg, f"11a {cfg.name} full width")
+
+        def split_dims(spec, leaf, path=()):
+            if isinstance(spec, dict):
+                return sum(split_dims(spec[k], leaf[k], path + (k,))
+                           for k in spec)
+            n = 0
+            for dim, entry in zip(leaf.shape, spec):
+                if entry is not None and "model" in entry:
+                    if dim % cfg.model_axis_size:
+                        raise AssertionError(
+                            f"11a {cfg.name} {'/'.join(path)}: dim {dim} does "
+                            f"not divide the model axis {cfg.model_axis_size}")
+                    n += 1
+            return n
+
+        n_split = split_dims(resolved, params)
+        toks = torch.from_numpy(np.random.default_rng(SEED + 110).integers(
+            0, cfg.vocab_size, (1, SHARD_PROMPT)).astype(np.int64)).to(dev)
+        # untimed warm-up at the prefill's shape, then the runs in turns
+        model.prefill(params, toks, impl="pallas",
+                      max_seq=SHARD_PROMPT + SHARD_DECODE)
+        runs = [sharded_run(torch, dev, k4, model, params, toks, r)
+                for r in (None, rules, rules, None)]
+        plain, ruled = runs[0], runs[1]
+        same_logits = all(torch.equal(a, b) for run in runs[1:]
+                          for a, b in zip(plain["logits"], run["logits"]))
+        same_cache = all(len(plain["cache"]) == len(run["cache"]) and all(
+            torch.equal(a, b) for a, b in zip(plain["cache"], run["cache"]))
+            for run in runs[1:])
+        ms = {"plain": [runs[0]["prefill_ms"], runs[3]["prefill_ms"]],
+              "rules": [runs[1]["prefill_ms"], runs[2]["prefill_ms"]]}
+        n_attn = cfg.n_layers
+        log(f"11a {cfg.name} ({what}) [{card}]: rules batch {rules.batch_axes} "
+            f"fsdp {rules.fsdp_axes} model {rules.model_axes} attn_shard "
+            f"{rules.attn_shard}; {n_split} param dims split on model, each "
+            f"dividing {cfg.model_axis_size}; prefill {SHARD_PROMPT} tokens "
+            f"through K4 in turns (without, with, with, without rules) "
+            f"{ms['plain'][0]:.2f}, {ms['rules'][0]:.2f}, {ms['rules'][1]:.2f}, "
+            f"{ms['plain'][1]:.2f} ms; K4 launches "
+            f"{[run['k4_prefill'] for run in runs]}; logits of the "
+            f"prefill and {SHARD_DECODE} decode steps "
+            f"{'bit-equal' if same_logits else 'DIFFER'}, the "
+            f"{len(plain['cache'])} cache leaves "
+            f"{'bit-equal' if same_cache else 'DIFFER'}")
+        if not (same_logits and same_cache):
+            raise AssertionError(f"11a {cfg.name}: the runs with rules and "
+                                 "without differ")
+        for run in runs:
+            if run["k4_prefill"] != n_attn or run["k4_decode"]:
+                raise AssertionError(
+                    f"11a {cfg.name}: K4 launched {run['k4_prefill']} times in "
+                    f"a prefill (expected {n_attn}) and {run['k4_decode']} in "
+                    "decode (expected 0)")
+        unchecked = set(ruled["k4_shapes"]) - set(ATTN_CASES)
+        if unchecked:
+            raise AssertionError(f"11a {cfg.name}: K4 ran at shapes phase 2d "
+                                 f"does not hold: {sorted(unchecked, key=str)}")
+        if not all(torch.isfinite(x).all() for x in plain["logits"]):
+            raise AssertionError(f"11a {cfg.name}: non-finite logits")
+        out[arch] = {"k4_launches": ruled["k4_prefill"], "prefill_ms": ms,
+                     "model_split_dims": n_split,
+                     "wall_s": time.perf_counter() - t0}
+        del params, plain, ruled, runs
+        free_card(torch, cfg.name)
+    return out
+
+
+def dry_run_on_host(card: str) -> dict:
+    """11b: ``python -m repro_torch.launch.dryrun`` for every arch and shape
+    on the single-pod mesh, one process an arch, then the report over the
+    rows.  Every cell must run (long_500k skipped where the reference skips
+    it), its flops_per_device x chips must equal ``analytic_cost``, and the
+    meta run's FLOP count must fall in ``flop_counter_band``."""
+    import tempfile
+
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get, info
+    from repro_torch.launch.costmodel import analytic_cost
+    from repro_torch.launch.dryrun import flop_counter_band
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {arch: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", "all", "--mesh", "single", "--out",
+             f"{tmp}/{arch}.jsonl"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for arch in ARCH_NAMES}
+        logs = {}
+        try:
+            for arch, proc in procs.items():
+                left = DRYRUN_LIMIT_S - (time.perf_counter() - t0)
+                logs[arch] = proc.communicate(timeout=max(left, 1.0))[0]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        bad = [a for a, p in procs.items() if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"11b: the dry run failed for {bad}:\n"
+                                 + "\n".join(logs[a][-2000:] for a in bad))
+        merged = Path(tmp) / "dryrun.jsonl"
+        merged.write_text("".join((Path(tmp) / f"{a}.jsonl").read_text()
+                                  for a in ARCH_NAMES))
+        rows = [json.loads(x) for x in merged.read_text().splitlines()]
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.report", str(merged)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        if rep.returncode != 0:
+            raise AssertionError(f"11b: the report failed:\n{rep.stderr}")
+    for line in rep.stdout.rstrip().splitlines():
+        log(f"11b {line}")
+    n_ok = n_skip = 0
+    ratios = {}
+    for r in rows:
+        arch, name = r["arch"], r["shape"]
+        cfg, inf, shape = get(arch), info(arch), SHAPES[name]
+        if "error" in r:
+            raise AssertionError(f"11b {arch} x {name}: {r['error']}")
+        if "skipped" in r:
+            if inf.long_context or name != "long_500k":
+                raise AssertionError(f"11b {arch} x {name}: skipped")
+            n_skip += 1
+            continue
+        ac = analytic_cost(cfg, inf, shape, attn_impl=(
+            "chunked" if shape.seq > 8192 else "full"))
+        if r["flops_per_device"] * r["chips"] != ac.flops_global:
+            raise AssertionError(f"11b {arch} x {name}: flops_per_device x "
+                                 f"chips {r['flops_per_device'] * r['chips']} "
+                                 f"!= analytic {ac.flops_global}")
+        lo, hi, why = flop_counter_band(cfg, shape)
+        ratio = r["flop_counter"]["flops_global"] / ac.flops_global
+        ratios[f"{arch} x {name}"] = ratio
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"11b {arch} x {name}: flop counter / analytic "
+                                 f"{ratio} outside [{lo}, {hi}] ({why})")
+        n_ok += 1
+    want = sum(1 for a in ARCH_NAMES for s in SHAPES
+               if s != "long_500k" or info(a).long_context)
+    if n_ok != want or n_skip != len(ARCH_NAMES) * len(SHAPES) - want:
+        raise AssertionError(f"11b: {n_ok} cells ran and {n_skip} skipped, "
+                             f"expected {want} and "
+                             f"{len(ARCH_NAMES) * len(SHAPES) - want}")
+    lowers = {f"{r['arch']} x {r['shape']}": r["t_lower_s"] for r in rows
+              if "t_lower_s" in r}
+    log(f"11b dry run on the card's host [{card}]: {n_ok} cells ok, {n_skip} "
+        f"skipped (long_500k, quadratic attention), {wall:.1f} s wall in "
+        f"{len(ARCH_NAMES)} processes (limit {DRYRUN_LIMIT_S} s); "
+        f"flops_per_device x chips equal analytic_cost in every cell; flop "
+        f"counter / analytic: " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in ratios.items()))
+    log(f"11b lower seconds a cell: {lowers}")
+    return {"cells_ok": n_ok, "skipped": n_skip, "wall_s": wall,
+            "flop_counter_ratio": ratios}
+
+
+def roofline_share(what: str, cfg, inf, shape, seconds: float, attn_impl: str,
+                   card: str) -> dict:
+    """MFU (model FLOPs over the time at the card's bf16 peak) and the
+    share of the analytic bound (the larger of compute and memory) that a
+    step of ``seconds`` reaches on one card."""
+    from repro_torch.launch.costmodel import analytic_cost
+    from repro_torch.launch.roofline import (HBM_BW, PEAK_FLOPS,
+                                             model_flops)
+
+    ac = analytic_cost(cfg, inf, shape, attn_impl=attn_impl)
+    t_compute = ac.flops_global / PEAK_FLOPS
+    t_memory = ac.bytes_per_device(1, params_replicated=False) / HBM_BW
+    mf = model_flops(cfg, shape)
+    out = {"seconds": seconds, "model_flops": mf, "flops": ac.flops_global,
+           "t_compute_s": t_compute, "t_memory_s": t_memory,
+           "mfu": mf / (seconds * PEAK_FLOPS),
+           "bound_share": max(t_compute, t_memory) / seconds,
+           "bound_by": "compute" if t_compute >= t_memory else "memory"}
+    log(f"11c {what} [{card}]: {seconds * 1e3:.2f} ms measured; model FLOPs "
+        f"{mf:.4e}, MFU {out['mfu']:.4f} (at {PEAK_FLOPS:.4g} FLOP/s); "
+        f"analytic {ac.flops_global:.4e} FLOPs ({attn_impl} attention) and "
+        f"{ac.bytes_per_device(1, params_replicated=False):.4e} bytes: "
+        f"t_compute {t_compute * 1e3:.2f} ms, t_memory {t_memory * 1e3:.2f} "
+        f"ms, {out['bound_by']}-bound, share of the bound "
+        f"{out['bound_share']:.4f} (limit {SHARE_LIMIT})")
+    if not (out["mfu"] <= SHARE_LIMIT and out["bound_share"] <= SHARE_LIMIT):
+        raise AssertionError(f"11c {what}: a share above {SHARE_LIMIT}: the "
+                             "count or the constants are wrong")
+    return out
+
+
+def shard_path(np, torch, dev, k4, card: str, models=None,
+               training=None) -> dict:
+    """Phase 11: 11a rules on the card, 11b the dry run on its host, 11c the
+    roofline of phases 8 and 7's measured steps (skipped without them)."""
+    from repro_torch.configs import Shape, get, info
+
+    t_phase = time.perf_counter()
+    out = {"11a": rules_on_card(np, torch, dev, k4, card),
+           "11b": dry_run_on_host(card)}
+    if models is None or training is None:
+        log("11c skipped: phases 7 and 8, whose steps it reads, did not run")
+    else:
+        prefill_s = models["8c"]["longest_prefill_ms"]["median"]["pallas"] / 1e3
+        step_s = statistics.median(training["7c"]["step_s"])
+        out["11c"] = {
+            "qwen3_14b_prefill_4096": roofline_share(
+                "qwen3-14b 4096-token prefill through K4 (phase 8c, median of "
+                "3)", get("qwen3_14b"), info("qwen3_14b"),
+                Shape("prefill_4k", "prefill", 4096, 1), prefill_s,
+                "triangle", card),
+            "falcon_mamba_7b_train_step": roofline_share(
+                f"falcon-mamba-7b train step, {TRAIN_LAYERS} layers, batch "
+                f"{TRAIN_BATCH} x {TRAIN_SEQ} (phase 7c, median of "
+                f"{len(training['7c']['step_s'])})",
+                get("falcon_mamba_7b").replace(n_layers=TRAIN_LAYERS),
+                info("falcon_mamba_7b"),
+                Shape("train_7c", "train", TRAIN_SEQ, TRAIN_BATCH), step_s,
+                "full", card)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {out['wall_s']:.1f} s")
+    return out
+
 
 def phase(name: str, fn, *args, **kw):
     """Run one phase of the script and print its wall time."""
@@ -3625,9 +4006,9 @@ def main(argv) -> int:
     if argv:
         if argv[:1] != ["--only"] or argv[1:] not in (
                 ["wis"], ["service"], ["train"], ["models"], ["xattn"],
-                ["mesh"]):
+                ["mesh"], ["shard"]):
             return fail(f"usage: chip_smoke.py [--only wis|service|train|"
-                        f"models|xattn|mesh], not {argv}")
+                        f"models|xattn|mesh|shard], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -3701,6 +4082,17 @@ def main(argv) -> int:
             model_launches=xattn["k4_launches"], **k4_row)],
             "xattn": xattn}, default=str), flush=True)
         return 0
+    if only == "shard":  # the build, K4 alone, then the sharding rules and tools
+        k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
+        shard = phase("11", shard_path, np, torch, dev, k4, card)
+        print(card, flush=True)
+        print(json.dumps({"kernels": [dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:108",
+            launches=sum(r["k4_launches"] for r in shard["11a"].values()),
+            **k4_row)], "shard": shard}, default=str), flush=True)
+        return 0
     if only == "service":  # the build, then the streaming service alone
         service = service_path(dev, k1, k2)
         print(card, flush=True)
@@ -3746,6 +4138,8 @@ def main(argv) -> int:
     xattn = phase("9", xattn_path, np, torch, dev, k4, card)
     mesh = phase("10", mesh_path, np, torch, dev, k1, k2, k1_ref, k2_ref,
                  common, reports, run)
+    phase("11", shard_path, np, torch, dev, k4, card, models=models,
+          training=training)
 
     kernels = [
         dict(name="jasda_score", route="cuda",

@@ -16,7 +16,7 @@ def config() -> ModelConfig:
         n_layers=32, d_model=1536, n_heads=24, n_kv_heads=8,
         d_ff=512, vocab_size=49155,
         n_experts=40, top_k=8, d_expert=512,
-        act="silu", gated_mlp=True,
+        act="silu", gated_mlp=True, attn_shard="headdim",
         moe_shard="ffn", dtype=torch.bfloat16,
     )
 

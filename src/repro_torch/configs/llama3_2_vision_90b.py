@@ -15,7 +15,7 @@ def config() -> ModelConfig:
         n_layers=100, d_model=8192, n_heads=64, n_kv_heads=8,
         d_ff=28672, vocab_size=128256,
         cross_attn_every=5, vision_seq=1600,
-        rope_theta=5e5, act="silu", gated_mlp=True,
+        rope_theta=5e5, act="silu", gated_mlp=True, attn_shard="heads",
         dtype=torch.bfloat16,
     )
 

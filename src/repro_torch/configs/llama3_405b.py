@@ -17,7 +17,7 @@ def config() -> ModelConfig:
         n_layers=126, d_model=16384, n_heads=128, n_kv_heads=8,
         d_ff=53248, vocab_size=128256,
         rope_theta=5e5, act="silu", gated_mlp=True,
-        dtype=torch.bfloat16,
+        attn_shard="heads", dtype=torch.bfloat16,
     )
 
 

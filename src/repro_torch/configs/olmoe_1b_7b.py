@@ -15,7 +15,7 @@ def config() -> ModelConfig:
         n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
         d_ff=1024, vocab_size=50304,
         n_experts=64, top_k=8, d_expert=1024,
-        act="silu", gated_mlp=True,
+        act="silu", gated_mlp=True, attn_shard="heads",
         moe_shard="expert", dtype=torch.bfloat16,
     )
 

@@ -15,7 +15,7 @@ def config() -> ModelConfig:
         n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20,
         d_ff=6912, vocab_size=151936,
         qkv_bias=True, rope_theta=1e6, act="silu", gated_mlp=True,
-        dtype=torch.bfloat16,
+        attn_shard="headdim", dtype=torch.bfloat16,
     )
 
 

@@ -15,7 +15,7 @@ def config() -> ModelConfig:
         n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8,
         d_ff=17408, vocab_size=151936, head_dim=128,
         qk_norm=True, rope_theta=1e6, act="silu", gated_mlp=True,
-        dtype=torch.bfloat16,
+        attn_shard="headdim", dtype=torch.bfloat16,
     )
 
 

@@ -17,7 +17,7 @@ def config() -> ModelConfig:
         n_layers=38, d_model=4096, n_heads=16, n_kv_heads=1,
         d_ff=12288, vocab_size=256000, head_dim=256,
         pattern=("rglru", "rglru", "attn"), window=2048, lru_width=4096,
-        act="gelu", gated_mlp=True,
+        act="gelu", gated_mlp=True, attn_shard="heads",
         dtype=torch.bfloat16,
     )
 

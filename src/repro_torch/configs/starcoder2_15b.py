@@ -18,7 +18,7 @@ def config() -> ModelConfig:
         n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4,
         d_ff=24576, vocab_size=49152,
         gated_mlp=False, act="gelu", rope_theta=1e5,
-        dtype=torch.bfloat16,
+        attn_shard="heads", dtype=torch.bfloat16,
     )
 
 

@@ -2,9 +2,8 @@
 vocab 51865; conv frontend STUBBED — the caller supplies (B, 1500, 768)
 precomputed frame embeddings as the memory. [arXiv:2212.04356; unverified]
 
-LayerNorm + GELU FFN + learned positional table (no RoPE), per the whisper
-family.  The reference's ``attn_shard="headdim"`` (12 heads % 16 ≠ 0)
-comes with the port's sharding.
+12 heads % 16 ≠ 0 → attn_shard="headdim" (hd 64 / 16 = 4). LayerNorm +
+GELU FFN + learned positional table (no RoPE), per the whisper family.
 """
 import torch
 
@@ -20,7 +19,7 @@ def config() -> ModelConfig:
         n_encoder_layers=12, encoder_seq=1500,
         max_pos_embed=40960,  # covers the decode_32k cache + headroom
         gated_mlp=False, act="gelu", qkv_bias=True,
-        dtype=torch.bfloat16,
+        attn_shard="headdim", dtype=torch.bfloat16,
     )
 
 

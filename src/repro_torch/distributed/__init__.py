@@ -1,6 +1,6 @@
-"""Distribution layer of the port: int8 gradient compression.
-
-Sharding rules and the mesh-axis all-reduce are not ported yet
-(``ROADMAP.md`` §1, item 7).
-"""
-from .compression import compress, decompress, init_error  # noqa: F401
+"""Distribution layer of the port: sharding rules, int8 gradient
+compression and its all-reduce."""
+from .compression import (compress, compressed_allreduce, decompress,  # noqa: F401
+                          init_error)
+from .sharding import (ShardingRules, named_sharding_tree,  # noqa: F401
+                       resolve_param_specs)

@@ -1,26 +1,170 @@
-"""Auction-round sharding: row specs over an auction mesh.
+"""Sharding rules: logical axis names → mesh specs, and the auction's rows.
 
-The auction half of ``repro/distributed/sharding.py``.  A spec is a plain
-tuple with one entry per dim: ``None`` (replicated) or a tuple of mesh
-axis names the dim is split over, as the entries of a
+The port's counterpart of ``repro/distributed/sharding.py``.  A spec is a
+plain tuple with one entry per dim: ``None`` (replicated) or a tuple of
+mesh axis names the dim is split over, as the entries of a
 ``jax.sharding.PartitionSpec`` are.  ``guard_spec`` drops entries whose
-mesh extent does not divide the dim; the auction's launch paths
+mesh extent does not divide the dim.
+
+Model half.  Parameters carry LOGICAL spec tuples ("fsdp" | "model" | None
+per dim, ``models/params.py``); activations are constrained by KIND
+strings inside the model code.  ``ShardingRules`` resolves both against a
+mesh (``launch/mesh.py::Mesh``):
+
+  fsdp  → ``fsdp_axes``  (single-pod: ("data",); multi-pod: ("pod","data"))
+  model → ("model",)
+
+Activation kinds:
+  btd   (B, S, D)        residual stream
+  btf   (B, S, F)        mlp hidden          — F on model
+  btm   (B, S, Dm)       ssm/rglru inner     — Dm on model
+  bshk  (B, S, H, hd)    q/attn-out          — H or hd on model (attn_shard)
+  btkk  (B, T, Hkv, hd)  k/v (+cache)        — kv heads if divisible; decode
+                         caches may instead shard T on model (flash-decode,
+                         ``shard_kv_seq``)
+  btv   (B, S, Vp)       logits              — Vp on model
+  gecd/gecf              MoE dispatch tensors
+
+``batch_axes`` shards B; ``seq_axes`` optionally shards S (sequence
+parallelism for long-context cells where B < mesh rows).
+
+The port's mesh is a single controller: one process drives every device
+and no tensor is split by a compiler.  So ``ShardingRules.act`` checks a
+constraint (its guarded spec against the mesh) and returns the tensor
+unchanged, and ``named_sharding_tree`` gives placements that are never
+applied to a tensor.  The specs are what the dry run
+(``launch/dryrun.py``) and the roofline's collective count
+(``launch/roofline.py``) read.
+
+Auction half.  The auction's launch paths
 (``kernels/jasda_score/ops.py::score_variants``, ``kernels/wis_dp/ops.py``)
 split rows over the mesh only when the guarded row spec still shards,
 else they take the unsharded path.
-
-The model half (``ShardingRules``, ``resolve_param_specs``,
-``named_sharding_tree``) is not ported yet (``ROADMAP.md`` §1, item 7b).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["guard_spec", "mesh_size", "auction_row_spec", "replicated_spec",
-           "spec_sharded", "row_shards", "row_slices", "sharded_launch"]
+__all__ = ["ShardingRules", "NamedSharding", "resolve_param_specs",
+           "named_sharding_tree", "guard_spec", "mesh_size",
+           "auction_row_spec", "replicated_spec", "spec_sharded",
+           "row_shards", "row_slices", "sharded_launch"]
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    mesh: Any  # launch.mesh.Mesh
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    model_axes: Tuple[str, ...] = ("model",)
+    batch_axes: Tuple[str, ...] = ("data",)
+    seq_axes: Tuple[str, ...] = ()  # sequence parallelism (activations)
+    attn_shard: str = "heads"  # heads | headdim (must match the config)
+    kv_heads_shardable: bool = True
+    shard_kv_seq: bool = False  # decode KV cache: T on model axis
+    shard_moe_expert: bool = True  # experts on model (else expert-FFN dim)
+
+    # -- helpers -------------------------------------------------------------
+    def _b(self):
+        return self.batch_axes if self.batch_axes else None
+
+    def _s(self):
+        return self.seq_axes if self.seq_axes else None
+
+    def _m(self):
+        return self.model_axes if self.model_axes else None
+
+    def spec(self, kind: str) -> Tuple:
+        b, s, m = self._b(), self._s(), self._m()
+        # sequence parallelism shares the model axis: only the residual
+        # stream (btd) carries the seq sharding; TP'd interiors drop it
+        s_in = None if (s and m and set(s) & set(m)) else s
+        if kind == "btd":
+            return (b, s, None)
+        if kind in ("btf", "btm"):
+            return (b, s_in, m)
+        if kind == "bshk":
+            if self.attn_shard == "heads":
+                return (b, s_in, m, None)
+            return (b, s_in, None, m)
+        if kind == "btkk":
+            if self.shard_kv_seq:
+                return (b, m, None, None)
+            if self.attn_shard == "heads" and self.kv_heads_shardable:
+                return (b, s_in, m, None)
+            if self.attn_shard == "headdim":
+                return (b, s_in, None, m)
+            return (b, s_in, None, None)
+        if kind == "btv":
+            return (b, s_in, m)
+        if kind == "bshk_seq":  # Ulysses interior: S on model, heads whole
+            return (b, m, None, None)
+        if kind == "btkk_full":  # Ulysses K/V: gathered heads + seq
+            return (b, None, None, None)
+        if kind == "xbtkk":  # stacked cross-attn K/V: (L, B, T, Hkv, hd)
+            if self.attn_shard == "heads" and self.kv_heads_shardable:
+                return (None, b, None, m, None)
+            if self.attn_shard == "headdim":
+                return (None, b, None, None, m)
+            return (None, b, None, None, None)
+        if kind == "gecd":
+            return (b, m if self.shard_moe_expert else None, None, None)
+        if kind == "gecf":
+            return (b, m, None, None) if self.shard_moe_expert \
+                else (b, None, None, m)
+        raise ValueError(f"unknown activation kind {kind}")
+
+    def act(self, x, kind: str):
+        """Constrain ``x`` to activation ``kind``: the guarded spec is
+        checked against the mesh and ``x`` is returned unchanged.  On the
+        port's single-controller mesh a constraint has nothing to move in
+        one process, so a model run with rules computes exactly what it
+        computes without."""
+        guard_spec(self.spec(kind), x.shape, self.mesh.shape)
+        return x
+
+    # -- parameter specs --------------------------------------------------------
+    def resolve(self, logical: Tuple) -> Tuple:
+        out = []
+        for name in logical:
+            if name is None:
+                out.append(None)
+            elif name == "fsdp":
+                out.append(self.fsdp_axes if self.fsdp_axes else None)
+            elif name == "model":
+                out.append(self.model_axes if self.model_axes else None)
+            else:
+                raise ValueError(f"unknown logical axis {name}")
+        return tuple(out)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec placed on a mesh: where a tensor of that spec would live.
+    The port's counterpart of ``jax.sharding.NamedSharding``; nothing
+    applies it to a tensor."""
+
+    mesh: Any  # launch.mesh.Mesh
+    spec: Tuple
+
+
+def _map_specs(fn, tree):
+    """``fn`` on every spec tuple of a nested dict (tuples are leaves)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def resolve_param_specs(logical_tree, rules: ShardingRules):
+    """Logical spec tuples → mesh spec tree."""
+    return _map_specs(rules.resolve, logical_tree)
+
+
+def named_sharding_tree(spec_tree, mesh):
+    return _map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
 
 
 def guard_spec(spec: Tuple, shape, mesh_shape: dict) -> Tuple:

@@ -172,7 +172,9 @@ def resolve_device(device=None, mesh=None) -> torch.device:
 
     ``None`` means ``"cuda"``.  A CUDA device on a machine without a card
     raises: the port never moves a device run to the host behind the
-    caller's back.  With an auction ``mesh`` (``launch/mesh.py``) the
+    caller's back.  ``"meta"`` is admitted when the caller names it (the
+    dry run's shape-only tensors, ``launch/dryrun.py``); no kernel
+    launches on it.  With an auction ``mesh`` (``launch/mesh.py``) the
     device backends run on the mesh's devices and gather their results on
     ``mesh.devices[0]``, which is returned; a ``device`` of another type
     than that one raises ``ValueError``.
@@ -189,7 +191,7 @@ def resolve_device(device=None, mesh=None) -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch sees no CUDA device; "
             "pass device='cpu' to run the plain torch versions on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
 

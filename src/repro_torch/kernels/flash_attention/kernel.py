@@ -101,6 +101,9 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset)
+    if device.type != "cuda":
+        raise ValueError(f"flash attention launches on a CUDA device, not "
+                         f"{str(device)!r} (a meta tensor has no data)")
 
     if q.dtype not in _DTYPES:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")

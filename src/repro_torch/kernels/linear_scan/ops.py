@@ -16,6 +16,10 @@ Both backends run through one ``torch.autograd.Function``: its forward is
 the scan (K5 on the card), its backward the reverse scan of the
 cotangents (``linear_scan_bwd_kernel`` on the card).  It saves a, the
 forward's h and h0.  Without inputs that require grad it builds no graph.
+
+On ``meta`` tensors (the dry run's, ``launch/dryrun.py``) both directions
+return shape-only outputs: no kernel launches and the plain loop over T
+does not run.  The scan has no matmul, so a FLOP count loses nothing.
 """
 from __future__ import annotations
 
@@ -44,8 +48,11 @@ def resolve_impl(impl: Optional[str], device_type: str) -> str:
 class _LinearScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, h0, impl):
-        fwd = linear_scan_cuda if impl == "cuda" else linear_scan_reference
-        h, h_t = fwd(a, b, h0)
+        if a.device.type == "meta":
+            h, h_t = torch.empty_like(a), a.new_empty((a.shape[0], a.shape[2]))
+        else:
+            fwd = linear_scan_cuda if impl == "cuda" else linear_scan_reference
+            h, h_t = fwd(a, b, h0)
         ctx.impl = impl
         ctx.save_for_backward(a, h, h0)
         ctx.set_materialize_grads(False)
@@ -54,6 +61,9 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gh, ghT):
         a, h, h0 = ctx.saved_tensors
+        if a.device.type == "meta":
+            return (torch.empty_like(a), torch.empty_like(a),
+                    None if h0 is None else torch.empty_like(h0), None)
         if gh is None:
             gh = torch.zeros_like(h)
         bwd = linear_scan_bwd_cuda if ctx.impl == "cuda" else linear_scan_bwd_reference

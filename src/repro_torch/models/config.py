@@ -14,8 +14,10 @@ stacked on a leading axis (the port loops over it in Python):
   vlm       : superblock = (cross_attn_every-1) self blocks + 1 cross block
   encdec    : separate encoder (bidirectional) and decoder (self+cross) stacks
 
-``moe_shard`` is carried for the config modules; nothing in the port reads
-it until it shards (``ROADMAP.md`` §1, item 7).
+Sharding-relevant knobs (``attn_shard``, ``moe_shard``) choose which weight
+dim maps onto the mesh "model" axis, because head/expert counts are not
+always divisible by 16 (whisper 12H, qwen1.5 20H, qwen3 40H, granite 40E).
+``models/params.py`` and ``distributed/sharding.py`` read them.
 """
 from __future__ import annotations
 
@@ -82,6 +84,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
+    attn_shard: str = "heads"  # heads | headdim (model-axis mapping)
     moe_shard: str = "expert"  # expert | ffn
     # model-axis size the padding rules target (fixed by the production mesh)
     model_axis_size: int = 16

@@ -4,10 +4,18 @@ The port's counterpart of ``repro/models/layers.py``.  The reference
 computes these outside any Pallas kernel, so they are plain torch here.
 Layouts are the reference's: activations (B, S, D), heads (B, S, H, hd).
 
+``attention``, ``mlp`` and the loss take an optional ``rules``
+(``distributed.sharding.ShardingRules`` or None).  ``constrain`` applies
+``rules.act(x, kind)``, which on the port's single-controller mesh checks
+the constraint and returns ``x``: a run with rules computes what it
+computes without.
+
 Attention implementations:
   * ``full``     — materialized logits; fine for short seq / decode.
   * ``chunked``  — a loop over q chunks, full-T softmax per chunk; bounds
                    transient memory to O(cq·T).
+  * ``triangle`` — a loop over q chunks whose key extent grows with the
+                   chunk (causal): skips the logits past the diagonal.
   * ``pallas``   — flash attention (``kernels/flash_attention``): the
                    hand-written CUDA kernel K4 on the card, its plain
                    version on the CPU; ``"cuda"`` is the same path.  The
@@ -33,9 +41,13 @@ import torch.nn.functional as F
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["rms_norm", "layer_norm", "rope", "attention", "mlp", "gelu",
-           "softmax_cross_entropy"]
+           "softmax_cross_entropy", "constrain"]
 
 NEG_INF = -1e30
+
+
+def constrain(x, rules, kind: str):
+    return rules.act(x, kind) if rules is not None else x
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +134,27 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, scale, chunk_q):
     return torch.cat(outs, dim=1)
 
 
+def _sdpa_triangle(q, k, v, q_pos, k_pos, *, causal, window, scale, chunk_q):
+    """Static q-chunk loop; k extent grows with the chunk (causal-only)."""
+    s, t = q.shape[1], k.shape[1]
+    if s % chunk_q:
+        return _sdpa_full(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                          scale=scale)
+    outs = []
+    prefix = t - s  # cache prefix before q[0] (0 for self-attn training)
+    for i in range(s // chunk_q):
+        rows = slice(i * chunk_q, (i + 1) * chunk_q)
+        k_hi = prefix + (i + 1) * chunk_q
+        k_lo = 0
+        if window is not None:
+            k_lo = max(0, prefix + i * chunk_q - window + 1)
+            k_lo = (k_lo // chunk_q) * chunk_q  # align for layout stability
+        outs.append(_sdpa_full(q[:, rows], k[:, k_lo:k_hi], v[:, k_lo:k_hi],
+                               q_pos[:, rows], k_pos[:, k_lo:k_hi],
+                               causal=causal, window=window, scale=scale))
+    return torch.cat(outs, dim=1)
+
+
 def _one_offset(q_positions, k_positions) -> int:
     """The one query offset the positions express, or ValueError."""
     s, t = q_positions.shape[1], k_positions.shape[1]
@@ -148,6 +181,7 @@ def attention(
     window: Optional[int] = None,
     impl: str = "auto",
     chunk_q: int = 256,  # bounds the (B,H,cq,T) logits transient
+    rules=None,
     scale: Optional[float] = None,
 ):
     """Dispatching scaled-dot-product attention. Layouts: (B, S, H, hd)."""
@@ -171,6 +205,9 @@ def attention(
     if impl == "chunked":
         return _sdpa_chunked(q, k, v, q_positions, k_positions, causal=causal,
                              window=window, scale=scale, chunk_q=chunk_q)
+    if impl == "triangle":
+        return _sdpa_triangle(q, k, v, q_positions, k_positions, causal=causal,
+                              window=window, scale=scale, chunk_q=chunk_q)
     raise ValueError(f"unknown attention impl {impl}")
 
 
@@ -188,7 +225,7 @@ def _act(x, kind: str):
     return F.silu(x) if kind == "silu" else gelu(x)
 
 
-def mlp(x, p, *, gated: bool, act: str):
+def mlp(x, p, *, gated: bool, act: str, rules=None):
     """Gated (SwiGLU) or plain two-matrix FFN, with whisper's biases
     (``b_up``, ``b_down``) where ``p`` has them. x: (B, S, D)."""
     if gated:
@@ -200,6 +237,7 @@ def mlp(x, p, *, gated: bool, act: str):
         if "b_up" in p:
             u = u + p["b_up"]
         h = _act(u, act)
+    h = constrain(h, rules, "btf")
     out = torch.einsum("bsf,fd->bsd", h, p["w_down"])
     if "b_down" in p:
         out = out + p["b_down"]
@@ -211,7 +249,7 @@ def mlp(x, p, *, gated: bool, act: str):
 # ---------------------------------------------------------------------------
 
 
-def softmax_cross_entropy(logits, labels, *, real_vocab: int):
+def softmax_cross_entropy(logits, labels, *, real_vocab: int, rules=None):
     """Mean CE over tokens; padded vocab entries are masked out.
 
     logits: (B, S, Vp) in model dtype; computed in f32 via logsumexp.

@@ -15,6 +15,11 @@ Execution paths:
                        every decode step; None in the other families).
   * ``decode_step``  — one token against a cache (serving inner loop).
 
+Every entry point takes ``rules`` (``distributed.sharding.ShardingRules``)
+and constrains the activations at the reference's points, Ulysses branch
+included; on the port's single-controller mesh a constraint checks its
+guarded spec and moves nothing, so results do not depend on ``rules``.
+
 Params keep the reference's stacked layout: each superblock leaf has a
 leading layer axis, and depth is a Python loop over it (the reference's
 ``lax.scan``), so conversion stays one to one.  Caches are stacked the
@@ -44,10 +49,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from .config import ModelConfig
-from .layers import (attention, layer_norm, mlp, rms_norm, rope,
+from .layers import (attention, constrain, layer_norm, mlp, rms_norm, rope,
                      softmax_cross_entropy)
 from .moe import moe_ffn
-from .params import PORTED_FAMILIES, init_params
+from .params import PORTED_FAMILIES, init_params, param_specs
 from .rglru import rglru_decode_step, rglru_seq
 from .ssm import mamba_decode_step, mamba_seq
 
@@ -102,8 +107,12 @@ class Model:
         self.scan_impl = scan_impl
 
     def init(self, generator=0, device=None):
-        """Random params on ``device`` (the card unless ``"cpu"`` is asked)."""
+        """Random params on ``device`` (the card unless ``"cpu"`` is asked;
+        ``"meta"`` gives shape-only leaves)."""
         return init_params(self.cfg, generator, device)
+
+    def specs(self):
+        return param_specs(self.cfg)
 
     # =========================================================================
     # attention building blocks (single layer; leading L stripped)
@@ -121,10 +130,13 @@ class Model:
         return q, k, v
 
     def _self_attn(self, p, h, positions, *, cache=None, index=None,
-                   causal=True, window=None, impl="auto"):
+                   causal=True, window=None, rules=None, impl="auto"):
         """Returns the attention output; writes ``cache`` in place."""
         cfg = self.cfg
         q, k, v = self._project_qkv(p, h)
+        q = constrain(q, rules, "bshk")
+        k = constrain(k, rules, "btkk")
+        v = constrain(v, rules, "btkk")
         if cfg.family != "encdec":  # whisper: position tables, no RoPE
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -166,12 +178,28 @@ class Model:
             if k.dtype != cfg.dtype:  # low-precision cache
                 k, v = k.to(cfg.dtype), v.to(cfg.dtype)
             k_pos = torch.arange(t, device=k.device).expand(b, t)
+            k = constrain(k, rules, "btkk")
+            v = constrain(v, rules, "btkk")
 
+        # Ulysses-style context parallelism for headdim-sharded archs
+        # (head counts not divisible by the model axis): queries go from
+        # hd-sharded to seq-sharded/full-head layout so the softmax needs
+        # no partial-sum all-reduce; k/v gather fully.  Decode (S == 1)
+        # keeps the psum path.
+        ulysses = (rules is not None and rules.attn_shard == "headdim"
+                   and q.shape[1] > 1)
+        if ulysses:
+            q = constrain(q, rules, "bshk_seq")
+            k = constrain(k, rules, "btkk_full")
+            v = constrain(v, rules, "btkk_full")
         out = attention(q, k, v, q_positions=positions, k_positions=k_pos,
-                        causal=causal, window=window, impl=impl)
+                        causal=causal, window=window, impl=impl, rules=rules)
+        if ulysses:
+            out = constrain(out, rules, "bshk_seq")
+        out = constrain(out, rules, "bshk")
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    def _cross_attn(self, p, h, cross_kv, impl="auto"):
+    def _cross_attn(self, p, h, cross_kv, rules=None, impl="auto"):
         """Queries from ``h`` against one layer's precomputed memory K/V,
         unmasked (the reference passes all-zero positions)."""
         q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
@@ -182,40 +210,44 @@ class Model:
         zeros = torch.zeros((), dtype=torch.long, device=h.device)
         out = attention(q, k, v, q_positions=zeros.expand(b, s),
                         k_positions=zeros.expand(b, t), causal=False,
-                        impl=impl)
+                        impl=impl, rules=rules)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    def _mlp_res(self, p, x, gate=None):
+    def _mlp_res(self, p, x, rules, gate=None):
         cfg = self.cfg
         h = _norm(cfg, x, p, "ln2")
-        out = mlp(h, p["mlp"], gated=cfg.gated_mlp, act=cfg.act)
+        out = mlp(h, p["mlp"], gated=cfg.gated_mlp, act=cfg.act, rules=rules)
         if gate is not None:
             out = _gated(out, gate, x.dtype)
-        return x + out
+        return x + constrain(out, rules, "btd")
 
     # =========================================================================
     # one block of a given kind
     # =========================================================================
     def _apply_block(self, kind, p, x, positions, *, cache=None, index=None,
-                     cross_kv=None, impl="auto", decode=False):
+                     cross_kv=None, rules=None, impl="auto", decode=False):
         """Returns ``(x, new recurrent state or None, MoE aux loss or None)``."""
         cfg = self.cfg
         h = _norm(cfg, x, p, "ln1")
         if kind == "cross":
-            out = self._cross_attn(p["attn"], h, cross_kv, impl=impl)
-            x = x + _gated(out, p["attn"]["gate_attn"], x.dtype)
-            return self._mlp_res(p, x, gate=p["gate_mlp"]), None, None
+            out = self._cross_attn(p["attn"], h, cross_kv, rules=rules,
+                                   impl=impl)
+            gated = _gated(out, p["attn"]["gate_attn"], x.dtype)
+            x = x + constrain(gated, rules, "btd")
+            return self._mlp_res(p, x, rules, gate=p["gate_mlp"]), None, None
         if kind in ("attn", "moe"):
             window = cfg.window if cfg.family == "hybrid" else None
-            x = x + self._self_attn(p["attn"], h, positions, cache=cache,
-                                    index=index, window=window, impl=impl)
+            out = self._self_attn(p["attn"], h, positions, cache=cache,
+                                  index=index, window=window, rules=rules,
+                                  impl=impl)
+            x = x + constrain(out, rules, "btd")
             if kind == "attn":
-                return self._mlp_res(p, x), None, None
+                return self._mlp_res(p, x, rules), None, None
             h2 = rms_norm(x, p["ln2_scale"], cfg.norm_eps)
             out, aux = moe_ffn(h2, p["moe"], top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               act=cfg.act, gated=cfg.gated_mlp)
-            return x + out, None, aux
+                               act=cfg.act, gated=cfg.gated_mlp, rules=rules)
+            return x + constrain(out, rules, "btd"), None, aux
         if kind == "mamba":
             seq, step = mamba_seq, mamba_decode_step
         elif kind == "rglru":
@@ -224,24 +256,24 @@ class Model:
             raise ValueError(kind)
         new_state = None
         if decode:
-            out, new_state = step(h[:, 0], p[kind], cfg, cache)
+            out, new_state = step(h[:, 0], p[kind], cfg, cache, rules=rules)
             out = out[:, None]
         elif cache is not None:  # prefill: also emit the decode state
-            out, new_state = seq(h, p[kind], cfg, scan_impl=self.scan_impl,
-                                 return_cache=True)
+            out, new_state = seq(h, p[kind], cfg, rules=rules,
+                                 scan_impl=self.scan_impl, return_cache=True)
         else:
-            out = seq(h, p[kind], cfg, scan_impl=self.scan_impl)
-        x = x + out
+            out = seq(h, p[kind], cfg, rules=rules, scan_impl=self.scan_impl)
+        x = x + constrain(out, rules, "btd")
         if kind == "rglru":
-            x = self._mlp_res(p, x)
+            x = self._mlp_res(p, x, rules)
         return x, new_state, None
 
     # =========================================================================
     # superblock stack (Python loop over depth)
     # =========================================================================
     def _run_layers(self, stack_params, x, positions, *, names, n_layers,
-                    cache=None, index=None, cross_stack=None, impl="auto",
-                    decode=False, remat=False):
+                    cache=None, index=None, cross_stack=None, rules=None,
+                    impl="auto", decode=False, remat=False):
         """Returns ``(x, the MoE blocks' aux losses summed)``; the aux is None
         where no block made one, and with a cache (serving drops it).
         Superblock ``layer``'s cross block reads layer ``layer`` of
@@ -256,27 +288,30 @@ class Model:
                 c_kv = ckv if kind == "cross" else None
                 if remat:
                     x, aux_l = checkpoint(self._block_out, kind, p, x,
-                                          positions, c_kv, impl,
+                                          positions, c_kv, rules, impl,
                                           use_reentrant=False)
                 else:
                     c = (_index(cache[name], layer)
                          if cache is not None and name in cache else None)
                     x, state, aux_l = self._apply_block(
                         kind, p, x, positions, cache=c, index=index,
-                        cross_kv=c_kv, impl=impl, decode=decode)
+                        cross_kv=c_kv, rules=rules, impl=impl, decode=decode)
                     if state is not None:
                         _write(c, state)
                 if aux_l is not None and cache is None:
                     aux = aux_l if aux is None else aux + aux_l
+            x = constrain(x, rules, "btd")
         return x, aux
 
-    def _block_out(self, kind, p, x, positions, cross_kv, impl):
+    def _block_out(self, kind, p, x, positions, cross_kv, rules, impl):
         x, _, aux_l = self._apply_block(kind, p, x, positions,
-                                        cross_kv=cross_kv, impl=impl)
+                                        cross_kv=cross_kv, rules=rules,
+                                        impl=impl)
         return x, aux_l
 
     def _run_all(self, params, x, positions, *, cross_stack=None, cache=None,
-                 index=None, impl="auto", decode=False, remat=False):
+                 index=None, rules=None, impl="auto", decode=False,
+                 remat=False):
         """Returns ``(final-normed x, aux loss summed over the layers or
         None)``."""
         cfg = self.cfg
@@ -285,21 +320,23 @@ class Model:
             x = self._run_encdec_decoder(
                 params, x, positions, cross_stack,
                 cache=None if cache is None else cache["blocks"]["b0_attn"],
-                index=index, impl=impl, remat=remat)
+                index=index, rules=rules, impl=impl, remat=remat)
             return self._final_norm(params, x), None
         x, aux = self._run_layers(
             blocks, x, positions, names=list(blocks), n_layers=cfg.n_super,
             cache=None if cache is None else cache["blocks"], index=index,
-            cross_stack=cross_stack, impl=impl, decode=decode, remat=remat)
+            cross_stack=cross_stack, rules=rules, impl=impl, decode=decode,
+            remat=remat)
         if "tail" in params:
             x, _ = self._run_layers(
                 params["tail"], x, positions, names=list(params["tail"]),
                 n_layers=1, cache=None if cache is None else cache["tail"],
-                index=index, impl=impl, decode=decode)
+                index=index, rules=rules, impl=impl, decode=decode)
         return self._final_norm(params, x), aux
 
     def _run_encdec_decoder(self, params, x, positions, cross_stack, *,
-                            cache=None, index=None, impl="auto", remat=False):
+                            cache=None, index=None, rules=None, impl="auto",
+                            remat=False):
         """The whisper decoder: per layer, causal self attention (writing
         ``cache`` in place), cross attention over layer l of
         ``cross_stack``, then the MLP."""
@@ -311,23 +348,24 @@ class Model:
             ckv = _index(cross_stack, layer)
             if remat:
                 x = checkpoint(self._decoder_layer, p_self, p_cross, ckv, x,
-                               positions, None, None, impl,
+                               positions, None, None, rules, impl,
                                use_reentrant=False)
             else:
                 c = None if cache is None else _index(cache, layer)
                 x = self._decoder_layer(p_self, p_cross, ckv, x, positions,
-                                        c, index, impl)
+                                        c, index, rules, impl)
         return x
 
     def _decoder_layer(self, p_self, p_cross, ckv, x, positions, cache, index,
-                       impl):
+                       rules, impl):
         cfg = self.cfg
         h = _norm(cfg, x, p_self, "ln1")
         x = x + self._self_attn(p_self["attn"], h, positions, cache=cache,
-                                index=index, impl=impl)
+                                index=index, rules=rules, impl=impl)
         hx = _norm(cfg, x, p_cross, "lnx")
-        x = x + self._cross_attn(p_cross["attn"], hx, ckv, impl=impl)
-        return self._mlp_res(p_self, x)
+        x = x + self._cross_attn(p_cross["attn"], hx, ckv, rules=rules,
+                                 impl=impl)
+        return self._mlp_res(p_self, x, rules)
 
     # =========================================================================
     # embedding / head
@@ -343,10 +381,12 @@ class Model:
             x = x + _take(params["pos_embed"], positions).to(dtype)
         return x
 
-    def unembed(self, params, x):
+    def unembed(self, params, x, rules=None):
         if self.cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x, params["embed"])
-        return torch.einsum("bsd,dv->bsv", x, params["unembed"])
+            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        return constrain(logits, rules, "btv")
 
     def _final_norm(self, params, x):
         cfg = self.cfg
@@ -358,7 +398,7 @@ class Model:
     # =========================================================================
     # encoder / cross-attention memory
     # =========================================================================
-    def encode(self, params, frames, *, impl="auto", remat=True):
+    def encode(self, params, frames, rules=None, impl="auto", remat=True):
         """frames (B, T, D) → the whisper encoder's output (B, T, D):
         the position table added, bidirectional layers, LayerNorm."""
         cfg = self.cfg
@@ -370,19 +410,20 @@ class Model:
         for layer in range(cfg.n_encoder_layers):
             p = _index(enc["blocks"], layer)
             if remat:
-                x = checkpoint(self._encoder_layer, p, x, pos, impl,
+                x = checkpoint(self._encoder_layer, p, x, pos, rules, impl,
                                use_reentrant=False)
             else:
-                x = self._encoder_layer(p, x, pos, impl)
+                x = self._encoder_layer(p, x, pos, rules, impl)
         return layer_norm(x, enc["final_norm"], enc["final_norm_bias"],
                           cfg.norm_eps)
 
-    def _encoder_layer(self, p, x, pos, impl):
+    def _encoder_layer(self, p, x, pos, rules, impl):
         h = _norm(self.cfg, x, p, "ln1")
-        x = x + self._self_attn(p["attn"], h, pos, causal=False, impl=impl)
-        return self._mlp_res(p, x)
+        x = x + self._self_attn(p["attn"], h, pos, causal=False, rules=rules,
+                                impl=impl)
+        return self._mlp_res(p, x, rules)
 
-    def cross_kv(self, params, memory):
+    def cross_kv(self, params, memory, rules=None):
         """The cross-attention K/V of every cross layer from ``memory``
         (B, T, D): {"k", "v"}, each (L_cross, B, T, Hkv, hd), one einsum
         over the stacked layer axis."""
@@ -396,23 +437,25 @@ class Model:
         if cfg.qkv_bias:
             k = k + stack["bk"][:, None, None]
             v = v + stack["bv"][:, None, None]
-        return {"k": k, "v": v}
+        return {"k": constrain(k, rules, "xbtkk"),
+                "v": constrain(v, rules, "xbtkk")}
 
-    def _cross_stack(self, params, memory, impl, remat):
+    def _cross_stack(self, params, memory, rules, impl, remat):
         """The cross K/V the family's decoder reads, or None."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            enc_out = self.encode(params, memory, impl=impl, remat=remat)
-            return self.cross_kv(params, enc_out)
+            enc_out = self.encode(params, memory, rules=rules, impl=impl,
+                                  remat=remat)
+            return self.cross_kv(params, enc_out, rules=rules)
         if cfg.family == "vlm":
-            return self.cross_kv(params, memory.to(cfg.dtype))
+            return self.cross_kv(params, memory.to(cfg.dtype), rules=rules)
         return None
 
     # =========================================================================
     # full forward (training / eval)
     # =========================================================================
-    def forward(self, params, tokens, *, memory=None, impl="auto", remat=True,
-                positions=None):
+    def forward(self, params, tokens, *, memory=None, rules=None, impl="auto",
+                remat=True, positions=None):
         """tokens (B, S) → (logits (B, S, Vp), aux loss: the MoE blocks'
         sum, 0 in the other families).  ``memory`` is the ``vlm`` patch
         embeddings or the ``encdec`` frames, (B, T, D).
@@ -423,28 +466,28 @@ class Model:
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-        cross_stack = self._cross_stack(params, memory, impl, remat)
-        x, aux = self._run_all(params, self.embed(params, tokens, positions),
-                               positions, cross_stack=cross_stack, impl=impl,
-                               remat=remat)
+        x = constrain(self.embed(params, tokens, positions), rules, "btd")
+        cross_stack = self._cross_stack(params, memory, rules, impl, remat)
+        x, aux = self._run_all(params, x, positions, cross_stack=cross_stack,
+                               rules=rules, impl=impl, remat=remat)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return self.unembed(params, x), aux
+        return self.unembed(params, x, rules), aux
 
     # =========================================================================
     # loss
     # =========================================================================
-    def loss_fn(self, params, batch, *, impl="auto", remat=True):
+    def loss_fn(self, params, batch, *, rules=None, impl="auto", remat=True):
         """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"},
         (B, S) integer tensors on the params' device, and "memory" for the
         ``vlm`` and ``encdec`` families), plus ``router_aux_weight`` × the
         aux loss in the ``moe`` family; a float32 scalar."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch["tokens"],
-                                   memory=batch.get("memory"), impl=impl,
-                                   remat=remat)
+                                   memory=batch.get("memory"), rules=rules,
+                                   impl=impl, remat=remat)
         loss = softmax_cross_entropy(logits, batch["labels"],
-                                     real_vocab=cfg.vocab_size)
+                                     real_vocab=cfg.vocab_size, rules=rules)
         if cfg.family == "moe":
             loss = loss + cfg.router_aux_weight * aux
         return loss
@@ -454,7 +497,8 @@ class Model:
     # =========================================================================
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    device=None) -> Dict[str, Any]:
-        """Zeroed decode state on ``device`` (the card unless ``"cpu"``)."""
+        """Zeroed decode state on ``device`` (the card unless ``"cpu"``;
+        ``"meta"`` gives shape-only leaves, never allocated)."""
         cfg = self.cfg
         dev = resolve_device(device)
         if isinstance(dtype, str):
@@ -492,7 +536,7 @@ class Model:
         return cache
 
     def decode_step(self, params, token, index, cache, *, cross_stack=None,
-                    impl="auto"):
+                    rules=None, impl="auto"):
         """token (B,), index scalar or (B,) → (logits (B, Vp), cache).
 
         The cache is updated in place and returned.  ``cross_stack`` is
@@ -504,12 +548,14 @@ class Model:
             positions = index.expand(b, 1)
         else:
             positions = index[:, None]
-        x = self.embed(params, token[:, None], positions)
+        x = constrain(self.embed(params, token[:, None], positions), rules,
+                      "btd")
         x, _ = self._run_all(params, x, positions, cross_stack=cross_stack,
-                             cache=cache, index=index, impl=impl, decode=True)
-        return self.unembed(params, x)[:, 0], cache
+                             cache=cache, index=index, rules=rules, impl=impl,
+                             decode=True)
+        return self.unembed(params, x, rules)[:, 0], cache
 
-    def prefill(self, params, tokens, *, memory=None, impl="auto",
+    def prefill(self, params, tokens, *, memory=None, rules=None, impl="auto",
                 max_seq=None):
         """Run the prompt; returns (last logits, cache, cross_stack).
 
@@ -522,9 +568,11 @@ class Model:
         """
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x = constrain(self.embed(params, tokens, positions), rules, "btd")
         cache = self.init_cache(b, max_seq or s, device=tokens.device)
-        cross_stack = self._cross_stack(params, memory, impl, remat=False)
-        x, _ = self._run_all(params, self.embed(params, tokens, positions),
-                             positions, cross_stack=cross_stack, cache=cache,
-                             index=0, impl=impl)
-        return self.unembed(params, x[:, -1:])[:, 0], cache, cross_stack
+        cross_stack = self._cross_stack(params, memory, rules, impl,
+                                        remat=False)
+        x, _ = self._run_all(params, x, positions, cross_stack=cross_stack,
+                             cache=cache, index=0, rules=rules, impl=impl)
+        return (self.unembed(params, x[:, -1:], rules)[:, 0], cache,
+                cross_stack)

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .layers import _act
+from .layers import _act, constrain
 
 __all__ = ["Routing", "route", "moe_ffn"]
 
@@ -78,6 +78,15 @@ def route(xt: torch.Tensor, router: torch.Tensor, *, top_k: int,
     return Routing(expert, gate, slot, slot < cap, cap, aux)
 
 
+def _constrain_gec(t, rules, kind: str, n_groups: int, cap: int):
+    """Constrain the expert-major (E, G·C, ·) buffer ``t`` as the
+    reference's (G, E, C, ·) tensor of activation ``kind``; returns ``t``."""
+    if rules is not None:
+        e, _, d = t.shape
+        constrain(t.view(e, n_groups, cap, d).transpose(0, 1), rules, kind)
+    return t
+
+
 def moe_ffn(
     x: torch.Tensor,  # (B, S, D)
     p,  # params: router (D,E), w_gate/w_up (E,D,Fe), w_down (E,Fe,D)
@@ -87,6 +96,7 @@ def moe_ffn(
     group_size: int = 512,
     act: str = "silu",
     gated: bool = True,
+    rules=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(out (B, S, D) in x's dtype, aux loss float32 scalar)``.
 
@@ -114,12 +124,14 @@ def moe_ffn(
     buf = x.new_zeros((spare + 1, D))
     buf[torch.where(r.keep, rows_at, spare)] = \
         xt[:, :, None, :].expand(-1, -1, top_k, -1)
-    ein = buf[:spare].view(E, n_groups * cap, D)
+    ein = _constrain_gec(buf[:spare].view(E, n_groups * cap, D), rules,
+                         "gecd", n_groups, cap)
 
     if gated:
         h = _act(torch.bmm(ein, p["w_gate"]), act) * torch.bmm(ein, p["w_up"])
     else:
         h = _act(torch.bmm(ein, p["w_up"]), act)
+    h = _constrain_gec(h, rules, "gecf", n_groups, cap)
     out_e = torch.bmm(h, p["w_down"]).reshape(spare, D)
 
     # combine: the kept choices' rows weighted by the bf16-rounded gates,

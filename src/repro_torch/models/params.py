@@ -1,12 +1,21 @@
-"""Parameter templates: one source of truth for shapes, dtypes and inits.
+"""Parameter templates: one source of truth for shapes, shardings, inits.
 
 The port's counterpart of ``repro/models/params.py`` for every family of
 the reference (``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``,
 ``encdec``).  A template is a nested dict of ``P`` leaves with the
-reference's shapes -- stacked superblocks carry a leading layer axis -- and
-its init recipes (fan-in normal, ``alog``, ``dtbias``, ``lam``, ``pos``).
-The logical sharding specs are left out until the port shards
-(``ROADMAP.md`` §1).
+reference's shapes -- stacked superblocks carry a leading layer axis --,
+its init recipes (fan-in normal, ``alog``, ``dtbias``, ``lam``, ``pos``)
+and its logical specs (``param_specs``: "fsdp", "model" or None per dim,
+resolved to mesh axes by ``distributed.sharding``).
+
+Sharding conventions (model axis = 16 on the production mesh):
+  * attention: heads on "model" when divisible (attn_shard="heads"), else
+    head_dim on "model" (attn_shard="headdim"); kv heads shard only when
+    divisible, else replicated (GQA kv ≤ model-axis).
+  * MLP: d_ff on "model"; MoE: experts on "model" (moe_shard="expert") or
+    expert-FFN dim on "model" (moe_shard="ffn", for E % 16 ≠ 0).
+  * FSDP: the d_model dim of every big matrix on "fsdp".
+  * embeddings: vocab on "model", d_model on "fsdp".
 
 ``init_params`` builds every leaf on the device from one seeded
 ``torch.Generator``: the full width is never built on the host.  Its
@@ -27,7 +36,8 @@ import torch
 from ..kernels.common import resolve_device
 from .config import ModelConfig
 
-__all__ = ["P", "build_template", "init_params", "PORTED_FAMILIES"]
+__all__ = ["P", "build_template", "init_params", "param_specs",
+           "PORTED_FAMILIES"]
 
 #: families whose blocks the port builds and runs
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
@@ -36,6 +46,8 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 @dataclass(frozen=True)
 class P:
     shape: Tuple[int, ...]
+    spec: Tuple = ()  # logical names per dim: "fsdp" | "model" | None;
+    #                   () replicates every dim
     init: str = "normal"  # normal | zeros | ones | alog | dtbias | lam | pos
     fan_in: Optional[int] = None  # stddev = 1/sqrt(fan_in); default shape[-2]
     dtype: Any = None  # None → cfg.dtype; norms/scalars force f32
@@ -48,53 +60,75 @@ class P:
 
 def _attn_tpl(cfg: ModelConfig, L: int, *, cross: bool = False) -> Dict[str, P]:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ax = cfg.model_axis_size
+    if cfg.attn_shard == "heads":
+        q_spec = (None, "fsdp", "model", None)
+        kv_spec = (None, "fsdp", "model" if Hkv % ax == 0 else None, None)
+        o_spec = (None, "model", None, "fsdp")
+        bq_spec = (None, "model", None)
+        bkv_spec = (None, "model" if Hkv % ax == 0 else None, None)
+    else:  # headdim
+        q_spec = (None, "fsdp", None, "model")
+        kv_spec = (None, "fsdp", None, "model")
+        o_spec = (None, None, "model", "fsdp")
+        bq_spec = (None, None, "model")
+        bkv_spec = (None, None, "model")
     t = {
-        "wq": P((L, D, H, hd), fan_in=D),
-        "wk": P((L, D, Hkv, hd), fan_in=D),
-        "wv": P((L, D, Hkv, hd), fan_in=D),
-        "wo": P((L, H, hd, D), fan_in=H * hd),
+        "wq": P((L, D, H, hd), q_spec, fan_in=D),
+        "wk": P((L, D, Hkv, hd), kv_spec, fan_in=D),
+        "wv": P((L, D, Hkv, hd), kv_spec, fan_in=D),
+        "wo": P((L, H, hd, D), o_spec, fan_in=H * hd),
     }
     if cfg.qkv_bias:
-        t["bq"] = P((L, H, hd), init="zeros")
-        t["bk"] = P((L, Hkv, hd), init="zeros")
-        t["bv"] = P((L, Hkv, hd), init="zeros")
+        t["bq"] = P((L, H, hd), bq_spec, init="zeros")
+        t["bk"] = P((L, Hkv, hd), bkv_spec, init="zeros")
+        t["bv"] = P((L, Hkv, hd), bkv_spec, init="zeros")
     if cfg.qk_norm:
-        t["q_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
-        t["k_norm"] = P((L, hd), init="zeros", dtype=torch.float32)
+        t["q_norm"] = P((L, hd), (None, None), init="zeros", dtype=torch.float32)
+        t["k_norm"] = P((L, hd), (None, None), init="zeros", dtype=torch.float32)
     if cross:
-        t["gate_attn"] = P((L,), init="zeros", dtype=torch.float32)
+        t["gate_attn"] = P((L,), (None,), init="zeros", dtype=torch.float32)
     return t
 
 
 def _mlp_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     D, F = cfg.d_model, cfg.d_ff
     t = {
-        "w_up": P((L, D, F), fan_in=D),
-        "w_down": P((L, F, D), fan_in=F),
+        "w_up": P((L, D, F), (None, "fsdp", "model"), fan_in=D),
+        "w_down": P((L, F, D), (None, "model", "fsdp"), fan_in=F),
     }
     if cfg.gated_mlp:
-        t["w_gate"] = P((L, D, F), fan_in=D)
+        t["w_gate"] = P((L, D, F), (None, "fsdp", "model"), fan_in=D)
     if cfg.family == "encdec":  # whisper carries biases
-        t["b_up"] = P((L, F), init="zeros")
-        t["b_down"] = P((L, D), init="zeros")
+        t["b_up"] = P((L, F), (None, "model"), init="zeros")
+        t["b_down"] = P((L, D), (None, None), init="zeros")
     return t
 
 
 def _norm_tpl(cfg: ModelConfig, L: int, name: str) -> Dict[str, P]:
     D = cfg.d_model
-    t = {f"{name}_scale": P((L, D), init="zeros", dtype=torch.float32)}
+    t = {f"{name}_scale": P((L, D), (None, None), init="zeros",
+                            dtype=torch.float32)}
     if cfg.family == "encdec":  # LayerNorm (scale+bias); others are RMSNorm
-        t[f"{name}_bias"] = P((L, D), init="zeros", dtype=torch.float32)
+        t[f"{name}_bias"] = P((L, D), (None, None), init="zeros",
+                              dtype=torch.float32)
     return t
 
 
 def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    if cfg.moe_shard == "expert":
+        up_spec = (None, "model", "fsdp", None)
+        down_spec = (None, "model", None, "fsdp")
+    else:  # ffn: shard the expert-FFN dim (E not divisible by mesh axis)
+        up_spec = (None, None, "fsdp", "model")
+        down_spec = (None, None, "model", "fsdp")
     return {
-        "router": P((L, D, E), fan_in=D, dtype=torch.float32),
-        "w_gate": P((L, E, D, Fe), fan_in=D),
-        "w_up": P((L, E, D, Fe), fan_in=D),
-        "w_down": P((L, E, Fe, D), fan_in=Fe),
+        "router": P((L, D, E), (None, "fsdp", None), fan_in=D,
+                    dtype=torch.float32),
+        "w_gate": P((L, E, D, Fe), up_spec, fan_in=D),
+        "w_up": P((L, E, D, Fe), up_spec, fan_in=D),
+        "w_down": P((L, E, Fe, D), down_spec, fan_in=Fe),
     }
 
 
@@ -102,15 +136,17 @@ def _mamba_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     D, Dm, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
                       cfg.dt_rank_actual)
     return {
-        "in_proj": P((L, D, 2, Dm), fan_in=D),
-        "conv_w": P((L, K, Dm), fan_in=K),
-        "conv_b": P((L, Dm), init="zeros"),
-        "x_proj": P((L, Dm, R + 2 * N), fan_in=Dm),
-        "dt_proj": P((L, R, Dm), fan_in=R),
-        "dt_bias": P((L, Dm), init="dtbias", dtype=torch.float32),
-        "a_log": P((L, Dm, N), init="alog", dtype=torch.float32),
-        "d_skip": P((L, Dm), init="ones", dtype=torch.float32),
-        "out_proj": P((L, Dm, D), fan_in=Dm),
+        "in_proj": P((L, D, 2, Dm), (None, "fsdp", None, "model"), fan_in=D),
+        "conv_w": P((L, K, Dm), (None, None, "model"), fan_in=K),
+        "conv_b": P((L, Dm), (None, "model"), init="zeros"),
+        "x_proj": P((L, Dm, R + 2 * N), (None, "model", None), fan_in=Dm),
+        "dt_proj": P((L, R, Dm), (None, None, "model"), fan_in=R),
+        "dt_bias": P((L, Dm), (None, "model"), init="dtbias",
+                     dtype=torch.float32),
+        "a_log": P((L, Dm, N), (None, "model", None), init="alog",
+                   dtype=torch.float32),
+        "d_skip": P((L, Dm), (None, "model"), init="ones", dtype=torch.float32),
+        "out_proj": P((L, Dm, D), (None, "model", "fsdp"), fan_in=Dm),
     }
 
 
@@ -119,16 +155,16 @@ def _rglru_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     nb = max(1, Dr // 256)  # block-diagonal gate projections (Griffin)
     bs = Dr // nb
     return {
-        "in_x": P((L, D, Dr), fan_in=D),
-        "in_gate": P((L, D, Dr), fan_in=D),
-        "conv_w": P((L, K, Dr), fan_in=K),
-        "conv_b": P((L, Dr), init="zeros"),
-        "gate_r": P((L, nb, bs, bs), fan_in=bs),
-        "gate_i": P((L, nb, bs, bs), fan_in=bs),
-        "gate_r_b": P((L, Dr), init="zeros"),
-        "gate_i_b": P((L, Dr), init="zeros"),
-        "lam": P((L, Dr), init="lam", dtype=torch.float32),
-        "out_proj": P((L, Dr, D), fan_in=Dr),
+        "in_x": P((L, D, Dr), (None, "fsdp", "model"), fan_in=D),
+        "in_gate": P((L, D, Dr), (None, "fsdp", "model"), fan_in=D),
+        "conv_w": P((L, K, Dr), (None, None, "model"), fan_in=K),
+        "conv_b": P((L, Dr), (None, "model"), init="zeros"),
+        "gate_r": P((L, nb, bs, bs), (None, "model", None, None), fan_in=bs),
+        "gate_i": P((L, nb, bs, bs), (None, "model", None, None), fan_in=bs),
+        "gate_r_b": P((L, Dr), (None, "model"), init="zeros"),
+        "gate_i_b": P((L, Dr), (None, "model"), init="zeros"),
+        "lam": P((L, Dr), (None, "model"), init="lam", dtype=torch.float32),
+        "out_proj": P((L, Dr, D), (None, "model", "fsdp"), fan_in=Dr),
     }
 
 
@@ -154,7 +190,7 @@ def _block_tpl(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
         return {
             **_norm_tpl(cfg, L, "ln1"), "attn": _attn_tpl(cfg, L, cross=True),
             **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
-            "gate_mlp": P((L,), init="zeros", dtype=torch.float32),
+            "gate_mlp": P((L,), (None,), init="zeros", dtype=torch.float32),
         }
     raise ValueError(kind)
 
@@ -163,16 +199,17 @@ def build_template(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     D, Vp = cfg.d_model, cfg.padded_vocab
+    f32 = torch.float32
     tpl: Dict[str, Any] = {
-        "embed": P((Vp, D), fan_in=1),
-        "final_norm": P((D,), init="zeros", dtype=torch.float32),
+        "embed": P((Vp, D), ("model", "fsdp"), fan_in=1),
+        "final_norm": P((D,), (None,), init="zeros", dtype=f32),
     }
     if cfg.family == "encdec":
-        tpl["final_norm_bias"] = P((D,), init="zeros", dtype=torch.float32)
+        tpl["final_norm_bias"] = P((D,), (None,), init="zeros", dtype=f32)
     if not cfg.tie_embeddings:
-        tpl["unembed"] = P((D, Vp), fan_in=D)
+        tpl["unembed"] = P((D, Vp), ("fsdp", "model"), fan_in=D)
     if cfg.max_pos_embed:
-        tpl["pos_embed"] = P((cfg.max_pos_embed, D), init="pos")
+        tpl["pos_embed"] = P((cfg.max_pos_embed, D), (None, "fsdp"), init="pos")
     sb = cfg.superblock
     tpl["blocks"] = {f"b{i}_{kind}": _block_tpl(cfg, kind, cfg.n_super)
                      for i, kind in enumerate(sb)}
@@ -181,10 +218,10 @@ def build_template(cfg: ModelConfig) -> Dict[str, Any]:
                        for i, kind in enumerate(sb[: cfg.n_tail])}
     if cfg.family == "encdec":
         tpl["encoder"] = {
-            "pos_embed": P((cfg.encoder_seq, D), init="pos"),
+            "pos_embed": P((cfg.encoder_seq, D), (None, "fsdp"), init="pos"),
             "blocks": _block_tpl(cfg, "attn", cfg.n_encoder_layers),
-            "final_norm": P((D,), init="zeros", dtype=torch.float32),
-            "final_norm_bias": P((D,), init="zeros", dtype=torch.float32),
+            "final_norm": P((D,), (None,), init="zeros", dtype=f32),
+            "final_norm_bias": P((D,), (None,), init="zeros", dtype=f32),
         }
         # decoder cross-attention stack (parallel to self-attn stack)
         tpl["cross"] = {**_norm_tpl(cfg, cfg.n_layers, "lnx"),
@@ -208,9 +245,11 @@ def _normal(shape, std, dtype, gen, device) -> torch.Tensor:
     return out
 
 
-def _init_leaf(p: P, cfg: ModelConfig, gen: torch.Generator,
+def _init_leaf(p: P, cfg: ModelConfig, gen: Optional[torch.Generator],
                device: torch.device) -> torch.Tensor:
     dtype = p.dtype or cfg.dtype
+    if device.type == "meta":  # shape and dtype only, never allocated
+        return torch.empty(p.shape, dtype=dtype, device=device)
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
@@ -250,9 +289,25 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
                 device=None) -> Dict[str, Any]:
     """Every leaf of ``cfg``'s template, drawn on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``generator`` is a ``torch.Generator`` on that
-    device, or an int seed for one."""
+    device, or an int seed for one.  On ``"meta"`` the leaves carry shape
+    and dtype only (the dry run's params): nothing is drawn or allocated."""
     dev = resolve_device(device)
-    if isinstance(generator, int):
+    if dev.type == "meta":
+        generator = None
+    elif isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=dev)
         generator.manual_seed(seed)
     return _materialize(build_template(cfg), cfg, generator, dev)
+
+
+def _specs(tpl):
+    if isinstance(tpl, P):
+        return tpl.spec
+    return {k: _specs(v) for k, v in tpl.items()}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The template's logical specs: a tree of tuples shaped like the
+    params, one entry per dim ("fsdp", "model" or None), resolved to mesh
+    axes by ``distributed.sharding.resolve_param_specs``."""
+    return _specs(build_template(cfg))

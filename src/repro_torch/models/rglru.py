@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.linear_scan.ops import linear_scan
-from .layers import gelu
+from .layers import constrain, gelu
 from .ssm import causal_conv1d, conv_step
 
 __all__ = ["rglru_seq", "rglru_decode_step"]
@@ -48,13 +48,14 @@ def _gated_input(log_a_t, i, xc):
         * i * xc.float()
 
 
-def rglru_seq(x: torch.Tensor, p: Dict, cfg, *,
+def rglru_seq(x: torch.Tensor, p: Dict, cfg, *, rules=None,
               scan_impl: Optional[str] = None, return_cache: bool = False):
     """x (B,S,D) → (B,S,D): conv + RG-LRU branch × gelu gate branch."""
     B = x.shape[0]
     K = cfg.ssm_conv
     xr_raw = torch.einsum("bsd,dm->bsm", x, p["in_x"])  # (B,S,Dr)
     xg = torch.einsum("bsd,dm->bsm", x, p["in_gate"])
+    xr_raw = constrain(xr_raw, rules, "btm")
     xr = causal_conv1d(xr_raw, p["conv_w"], p["conv_b"])
 
     r, i = _gates(xr, p)
@@ -62,6 +63,7 @@ def rglru_seq(x: torch.Tensor, p: Dict, cfg, *,
     a_t = torch.exp(log_a_t)
     h, hT = linear_scan(a_t, _gated_input(log_a_t, i, xr), impl=scan_impl)
     y = (h * gelu(xg.float())).to(x.dtype)
+    y = constrain(y, rules, "btm")
     out = torch.einsum("bsm,md->bsd", y, p["out_proj"])
     if not return_cache:
         return out
@@ -75,6 +77,7 @@ def rglru_decode_step(
     p: Dict,
     cfg,
     cache: Dict,  # {"conv": (B,K-1,Dr), "h": (B,Dr) f32}
+    rules=None,
 ) -> Tuple[torch.Tensor, Dict]:
     xr = torch.einsum("bd,dm->bm", x_t, p["in_x"])
     xg = torch.einsum("bd,dm->bm", x_t, p["in_gate"])

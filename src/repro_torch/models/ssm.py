@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.linear_scan.ops import linear_scan
+from .layers import constrain
 
 __all__ = ["mamba_seq", "mamba_decode_step", "causal_conv1d", "conv_step"]
 
@@ -53,7 +54,7 @@ def _ssm_inputs(x_conv, p, cfg):
     return dt, a, b_ssm.float(), c_ssm.float()
 
 
-def mamba_seq(x: torch.Tensor, p: Dict, cfg, *,
+def mamba_seq(x: torch.Tensor, p: Dict, cfg, *, rules=None,
               scan_impl: Optional[str] = None, return_cache: bool = False):
     """Full-sequence mamba mixer. x (B,S,D) → (B,S,D) [, decode cache]."""
     B, S, _ = x.shape
@@ -61,6 +62,7 @@ def mamba_seq(x: torch.Tensor, p: Dict, cfg, *,
     K = cfg.ssm_conv
     xz = torch.einsum("bsd,dcm->bscm", x, p["in_proj"])  # (B,S,2,Dm)
     x1_raw, z = xz[:, :, 0], xz[:, :, 1]
+    x1_raw = constrain(x1_raw, rules, "btm")
     x1 = F.silu(causal_conv1d(x1_raw, p["conv_w"], p["conv_b"]))
 
     dt, a, b_ssm, c_ssm = _ssm_inputs(x1, p, cfg)
@@ -72,6 +74,7 @@ def mamba_seq(x: torch.Tensor, p: Dict, cfg, *,
     h = h.reshape(B, S, Dm, N)
     y = torch.einsum("bsdn,bsn->bsd", h, c_ssm) + p["d_skip"] * x1.float()
     y = (y * F.silu(z.float())).to(x.dtype)
+    y = constrain(y, rules, "btm")
     out = torch.einsum("bsm,md->bsd", y, p["out_proj"])
     if not return_cache:
         return out
@@ -85,6 +88,7 @@ def mamba_decode_step(
     p: Dict,
     cfg,
     cache: Dict,  # {"conv": (B,K-1,Dm), "ssm": (B,Dm,N) f32}
+    rules=None,
 ) -> Tuple[torch.Tensor, Dict]:
     xz = torch.einsum("bd,dcm->bcm", x_t, p["in_proj"])
     x1, z = xz[:, 0], xz[:, 1]  # (B, Dm)

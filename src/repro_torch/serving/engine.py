@@ -53,15 +53,17 @@ class ServeConfig:
 
 
 class ServingEngine:
-    def __init__(self, model: Model, params, cfg: ServeConfig, *, device=None,
-                 attn_impl: str = "auto"):
+    def __init__(self, model: Model, params, cfg: ServeConfig, *, rules=None,
+                 device=None, attn_impl: str = "auto"):
         """Serve ``model`` with ``params`` on ``device`` (the card unless
         ``"cpu"`` is asked for; the params must already lie there), its
-        prefills through attention ``attn_impl``."""
+        prefills through attention ``attn_impl``; ``rules``
+        (``distributed.sharding.ShardingRules``) go to every model call."""
         self.model = model
         self.attn_impl = attn_impl
         self.params = params
         self.cfg = cfg
+        self.rules = rules
         self.device = resolve_device(device)
         B, T = cfg.batch_slots, cfg.max_seq
         self.cache = model.init_cache(B, T, device=self.device)
@@ -73,11 +75,12 @@ class ServingEngine:
 
     # -- the two model calls (the reference jits these) ---------------------
     def _prefill(self, tokens: torch.Tensor):
-        return self.model.prefill(self.params, tokens, impl=self.attn_impl,
-                                  max_seq=self.cfg.max_seq)
+        return self.model.prefill(self.params, tokens, rules=self.rules,
+                                  impl=self.attn_impl, max_seq=self.cfg.max_seq)
 
     def _decode(self, tok: torch.Tensor, idx: torch.Tensor):
-        return self.model.decode_step(self.params, tok, idx, self.cache)
+        return self.model.decode_step(self.params, tok, idx, self.cache,
+                                      rules=self.rules)
 
     # -- request lifecycle ------------------------------------------------
     def submit(self, req: Request) -> None:

@@ -10,7 +10,10 @@ global batch is split into ``microbatches`` chunks, accumulated in a
 Python loop (the reference's ``lax.scan``); remat happens inside the
 model.  The loss and the accumulated gradients are float32, and the
 gradient of a bfloat16 param is bfloat16, as ``jax.value_and_grad`` gives
-them.
+them.  ``rules`` (``distributed.sharding.ShardingRules``) go to every model
+call; the reference's constraint that keeps the stacked microbatches'
+batch dim on the batch axes is a guarded spec check, which moves nothing
+on the port's single-controller mesh.
 
 Params and optimizer state are updated in place (``training/optimizer``)
 and returned.  The params the caller passes need not require grad: each
@@ -24,33 +27,41 @@ from typing import Callable, Optional
 import torch
 
 from ..checkpoint.store import tree_flatten
+from ..distributed.sharding import guard_spec
 from .optimizer import Optimizer, apply_updates, clip_factor, global_norm
 
 __all__ = ["make_train_step", "make_eval_step", "make_accum_steps"]
 
 
-def _grad_fn(model, *, attn_impl: str, remat: bool) -> Callable:
+def _grad_fn(model, *, rules=None, attn_impl: str, remat: bool) -> Callable:
     """(params, batch) → (loss, grads): the port's ``jax.value_and_grad``."""
     def value_and_grad(params, batch):
         leaves, rebuild = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            loss = model.loss_fn(rebuild(live), batch, impl=attn_impl,
-                                 remat=remat)
+            loss = model.loss_fn(rebuild(live), batch, rules=rules,
+                                 impl=attn_impl, remat=remat)
             grads = torch.autograd.grad(loss, live)
         return loss.detach(), rebuild(list(grads))
     return value_and_grad
 
 
-def _split(batch, microbatches: int):
-    """The batch cut into ``microbatches`` equal parts along its rows."""
+def _split(batch, microbatches: int, rules=None):
+    """The batch cut into ``microbatches`` equal parts along its rows; with
+    ``rules``, each stacked part keeps its batch dim on the batch axes (a
+    guarded spec; nothing moves on the single-controller mesh)."""
     parts = {}
     for k, x in batch.items():
         b = x.shape[0]
         if b % microbatches:
             raise ValueError(f"batch of {b} rows does not split into "
                              f"{microbatches} microbatches")
-        parts[k] = x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))
+        x = x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))
+        if rules is not None:
+            ba = rules.batch_axes if rules.batch_axes else None
+            guard_spec((None, ba) + (None,) * (x.dim() - 2), x.shape,
+                       rules.mesh.shape)
+        parts[k] = x
     return [{k: x[i] for k, x in parts.items()} for i in range(microbatches)]
 
 
@@ -93,13 +104,14 @@ def make_train_step(
     model,
     optimizer: Optimizer,
     *,
+    rules=None,
     microbatches: int = 1,
     attn_impl: str = "auto",
     remat: bool = True,
     clip_norm: Optional[float] = 1.0,
     accum_dtype=torch.float32,
 ) -> Callable:
-    grad_fn = _grad_fn(model, attn_impl=attn_impl, remat=remat)
+    grad_fn = _grad_fn(model, rules=rules, attn_impl=attn_impl, remat=remat)
 
     def train_step(params, opt_state, batch, step):
         if microbatches == 1:
@@ -107,7 +119,7 @@ def make_train_step(
         else:
             grads = _zeros(params, accum_dtype)
             loss = None
-            for mb in _split(batch, microbatches):
+            for mb in _split(batch, microbatches, rules):
                 mb_loss, g = grad_fn(params, mb)
                 grads = _accumulate(grads, g, accum_dtype)
                 del g
@@ -122,10 +134,11 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model, *, attn_impl: str = "auto"):
+def make_eval_step(model, *, rules=None, attn_impl: str = "auto"):
     @torch.no_grad()
     def eval_step(params, batch):
-        return model.loss_fn(params, batch, impl=attn_impl, remat=False)
+        return model.loss_fn(params, batch, rules=rules, impl=attn_impl,
+                             remat=False)
     return eval_step
 
 
@@ -133,6 +146,7 @@ def make_accum_steps(
     model,
     optimizer: Optimizer,
     *,
+    rules=None,
     attn_impl: str = "auto",
     remat: bool = True,
     clip_norm: Optional[float] = 1.0,
@@ -148,7 +162,7 @@ def make_accum_steps(
     the caller) is accumulated in place, so the step peaks at ONE gradient
     tree beside it.
     """
-    grad_fn = _grad_fn(model, attn_impl=attn_impl, remat=remat)
+    grad_fn = _grad_fn(model, rules=rules, attn_impl=attn_impl, remat=remat)
 
     def micro_step(params, grad_acc, micro_batch):
         loss, g = grad_fn(params, micro_batch)

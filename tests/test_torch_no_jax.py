@@ -53,8 +53,52 @@ def test_import_leaves_jax_and_reference_out():
                  "configs.qwen3_14b", "configs.qwen1_5_4b",
                  "configs.starcoder2_15b", "configs.llama3_405b",
                  "configs.whisper_small", "configs.llama3_2_vision_90b",
-                 "launch.mesh", "distributed.sharding"):
+                 "launch.mesh", "distributed.sharding", "configs.shapes",
+                 "launch.costmodel", "launch.roofline", "launch.dryrun",
+                 "launch.report"):
         assert (PORT / (name.replace(".", "/") + ".py")) in PORT_FILES
+
+
+def test_every_reference_module_has_a_twin():
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (PORT / p.relative_to(ref)).exists())
+    assert missing == []
+
+
+def test_dry_run_imports_no_jax():
+    """The dry run and the report, the tools a user runs on a host without
+    the card, load neither JAX nor the reference."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.report\n"
+        "bad = [m for m in sys.modules if m.split('.')[0]\n"
+        "       in ('jax', 'ml_dtypes', 'repro')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_meta_is_asked_for_and_never_launches(monkeypatch):
+    """``"meta"`` is a device only when named: None still means the card.
+    K4's wrapper refuses meta tensors rather than launch on them."""
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as k4
+
+    assert resolve_device("meta").type == "meta"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    q = torch.empty(1, 2, 64, 64, device="meta", dtype=torch.bfloat16)
+    before = dict(k4.LAUNCHES)
+    for impl in ("cuda", "pallas"):
+        with pytest.raises(ValueError, match="meta"):
+            flash_attention(q, q, q, causal=True, impl=impl)
+    assert k4.LAUNCHES == before
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
