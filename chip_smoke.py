@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only xattn     # phases 1, 2d and 9 alone
     python3 chip_smoke.py --only mesh      # phases 1, 2 (K1, K2), 3 and 10 alone
     python3 chip_smoke.py --only shard     # phases 1, 2d and 11 alone
+    python3 chip_smoke.py --only examples  # phases 1 and 12, the full study
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -252,7 +253,29 @@ Phases (any failure exits non-zero and prints no result):
    prints the MFU (model FLOPs over the time at 989 TFLOP/s) and the share
    of the analytic bound (``launch/roofline.py``'s H100 constants) of
    phase 8c's qwen3-14b 4096-token K4 prefill and phase 7c's falcon-mamba-7b
-   train step: each share at most 1.05 (skipped under ``--only shard``).
+   train step: each share at most 1.05 (skipped under ``--only shard``);
+12. the examples, through their own entry points (``examples/*_torch.py``).
+   12a the cluster study's four sections (JASDA against the baselines,
+   steady and with slice failures; the four policy presets; the mixed
+   bidder population) cut to t_end 300 (failures 450), JASDA through K1
+   and K2 on the card and through the plain torch versions on the host in
+   the same process: every table equal, K1 and K2 launched in every JASDA
+   simulation (counts set to 0 before each section), none in a baseline,
+   K1's pools at least 256 rows and K2's settles at least 8 windows, no
+   backend marked failed; 12b batched serving (10 requests, 4 slots, the
+   float32 serve-demo decoder) through K4 and through auto, in turns,
+   twice: the same tokens (a pick may part only at a near-tie, where
+   auto's top-1 margin is at most twice the runs' logit gap), K4 4 times
+   a prefill and 40 a run, never in decode or through auto, and K4 within
+   7.2e-7 of its plain version on the served prefills' inputs; 12c the
+   100M-parameter LM at full width, 40 steps under the executor into a
+   new directory (a non-blocking save at every chunk boundary, each timed),
+   then a second run on it to step 56: it resumes from step 40, the store
+   gives back the first run's final state bit for bit, and the loss falls
+   in both runs; ms a step, tokens/s, the peak memory and each save's time
+   printed, then three more steps timed one by one and one profiled.  Under
+   ``--only examples`` the study then runs at its own length through K1
+   and K2, its tables printed.
 
 Every phase prints its wall time.
 
@@ -2571,24 +2594,26 @@ def _zeros_like(torch, tree):
     return torch.zeros_like(tree)
 
 
-def train_profile(torch, run, step: int, card: str) -> dict:
-    """One more step of ``run`` under torch.profiler: its device time by
-    kernel group and name."""
+def train_profile(torch, step_once, what: str, card: str) -> dict:
+    """``step_once()``, one more train step, under torch.profiler: its
+    device time by kernel group and name, and its device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run.run_steps(step, 1)
+        step_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = profiled_events(torch, prof)
     del prof
     release_profiler()
     groups, names = {}, {}
+    n_events = 0
     for name, on_card, t0, t1 in events:
         if not on_card:
             continue
+        n_events += 1
         sec = (t1 - t0) / 1e9
         g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + sec
@@ -2596,16 +2621,17 @@ def train_profile(torch, run, step: int, card: str) -> dict:
         names[label] = names.get(label, 0.0) + sec
     busy = sum(groups.values())
     if busy == 0.0:
-        log("7c train step device time: not measured (the profiler saw no "
-            "device time)")
+        log(f"{what}: device time not measured (the profiler saw no device "
+            "time)")
         return {}
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
-    log(f"7c one train step (step {step}) under torch.profiler [{card}]: "
+    log(f"{what} under torch.profiler [{card}]: "
         f"{wall:.3f} s wall, device busy {busy:.4f} s ({100 * busy / wall:.1f}% "
-        f"of the wall); by group: " + ", ".join(
+        f"of the wall) in {n_events} device events; by group: " + ", ".join(
             f"{g} {v:.4f} s" for g, v in sorted(groups.items(), key=lambda kv: -kv[1]))
         + "; top kernels: " + ", ".join(f"{k} {v:.4f} s" for k, v in top))
-    return {"wall_s": wall, "busy_s": busy, "groups": groups}
+    return {"wall_s": wall, "busy_s": busy, "groups": groups,
+            "device_events": n_events}
 
 
 def train_split(torch, dev, run, step: int, card: str) -> dict:
@@ -2725,7 +2751,8 @@ def training_path(torch, dev, k5, k5_ref, card: str) -> dict:
         f"tokens/s a step {[round(tokens / x, 1) for x in run.step_s]}; "
         f"K5 launches {launches}; peak memory {peak_gb:.3f} GB "
         f"({free_gb:.3f} GB of the card's {lane / 1e9:.3f} GB free)")
-    prof = train_profile(torch, run, TRAIN_STEPS, card)
+    prof = train_profile(torch, lambda: run.run_steps(TRAIN_STEPS, 1),
+                         f"7c one train step (step {TRAIN_STEPS})", card)
     split = train_split(torch, dev, run, TRAIN_STEPS + 1, card)
     out["7c"] = {"losses": run.losses, "grad_norms": run.grad_norms,
                  "step_s": run.step_s, "chunks": run.chunks, "wall_s": wall,
@@ -3993,6 +4020,450 @@ def shard_path(np, torch, dev, k4, card: str, models=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+#: 12a's horizon: the cluster study's sections run to 6000 (failures 9000)
+STUDY_T_END = 300.0
+#: 12b: f32 K4 against its plain version on the served prefills' inputs
+SERVE_K4_TOL = 7.2e-7
+#: 12c: steps of the first run, then the resumed run's total; the tokens
+#: of a step at the example's default batch x sequence
+TRAIN_FIRST, TRAIN_TOTAL = 40, 56
+TRAIN_100M_TOKENS = 8 * 256
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{name}_example",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(fn, *args, **kw):
+    """``fn``'s result and what it printed to standard output."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def study_sections(t_end: float):
+    """The four sections of ``cluster_study_torch.main``, to ``t_end``."""
+    return [("steady", "run", dict(
+                title="steady state (heterogeneous MIG pool)", t_end=t_end)),
+            ("failures", "run", dict(
+                title="with slice failures (MTBF ~5.5 min, repair 50 s)",
+                t_end=1.5 * t_end, failure_rate=0.003)),
+            ("presets", "run_presets", dict(t_end=t_end)),
+            ("strategies", "run_strategies", dict(t_end=t_end))]
+
+
+def run_study(k1, k2, study, sections, device: str, impl) -> dict:
+    """Each section of the study through backend ``impl`` on ``device``:
+    its printed table, wall, and the K1 and K2 launches counted in it, each
+    simulation's apart (a JASDA one must launch both on the card; the
+    baselines launch nothing)."""
+    simulate = study.simulate
+    sims = []
+
+    def recorded(sched, agents, cfg):
+        before = (k1.LAUNCHES["jasda_score"], k2.LAUNCHES["wis_batch"])
+        t0 = time.perf_counter()
+        res = simulate(sched, agents, cfg)
+        row = {"system": type(sched).__name__,
+               "wall_s": time.perf_counter() - t0,
+               "jasda_score": k1.LAUNCHES["jasda_score"] - before[0],
+               "wis_batch": k2.LAUNCHES["wis_batch"] - before[1]}
+        health = getattr(sched, "backend_health", None)
+        if health is not None:
+            row["rounds"] = sum(1 for r in sched.log if r.n_windows)
+            row["policy"] = sched.policy.name
+            if health.failed_backends():
+                raise AssertionError(f"{impl} study marked backends failed: "
+                                     f"{health.failed_backends()}")
+        sims.append(row)
+        return res
+
+    out = {}
+    study.simulate = recorded
+    try:
+        for name, fn, kw in sections:
+            sims.clear()
+            t0 = time.perf_counter()
+            (_, text), launches, shapes = counted(
+                k1, k2, lambda: printed(getattr(study, fn), device=device,
+                                        impl=impl, **kw))
+            out[name] = {"text": text, "wall_s": time.perf_counter() - t0,
+                         "launches": launches, "shapes": shapes,
+                         "sims": list(sims)}
+    finally:
+        study.simulate = simulate
+    return out
+
+
+def study_gates(cuda: dict, host: dict, card: str) -> dict:
+    """12a's gates: every table equal, K1 and K2 launched in every JASDA
+    simulation on the card and never on the host, K1's pools padded to at
+    least 256 rows and K2's settles to at least 8 windows."""
+    out = {}
+    for name, run in cuda.items():
+        other = host[name]
+        if run["text"] != other["text"]:
+            raise AssertionError(f"12a {name}: the card's table differs from "
+                                 f"the host's:\n{run['text']}\n---\n"
+                                 f"{other['text']}")
+        if any(other["launches"].values()):
+            raise AssertionError(f"12a {name}: the host run launched "
+                                 f"{other['launches']}")
+        jasda = [s for s in run["sims"] if "rounds" in s]
+        if not jasda or any(not (s["jasda_score"] and s["wis_batch"])
+                            for s in jasda):
+            raise AssertionError(f"12a {name}: a JASDA simulation skipped a "
+                                 f"kernel: {jasda}")
+        if any(s["jasda_score"] or s["wis_batch"] for s in run["sims"]
+               if "rounds" not in s):
+            raise AssertionError(f"12a {name}: a baseline launched a kernel")
+        m_min = min(key[0] for key in run["shapes"]["jasda_score"])
+        w_min = min(key[0] for key in run["shapes"]["wis_batch"])
+        if m_min < 256 or w_min < 8:
+            raise AssertionError(f"12a {name}: pools below the buckets: M "
+                                 f"{m_min}, W {w_min}")
+        log(f"12a {name} [{card}]: tables equal; cuda {run['wall_s']:.2f} s, "
+            f"host torch {other['wall_s']:.2f} s wall; launches "
+            f"{run['launches']}")
+        host_jasda = [s for s in other["sims"] if "rounds" in s]
+        for s, h in zip(jasda, host_jasda):
+            log(f"  {s['policy']}: {s['rounds']} rounds, K1 "
+                f"{s['jasda_score']}, K2 {s['wis_batch']}, "
+                f"{s['wall_s']:.2f} s (host torch {h['wall_s']:.2f} s)")
+        log(f"  K1 shapes (M, Fj, Fs, T): {run['shapes']['jasda_score']}")
+        log(f"  K2 shapes (W, L, fused, transformed): "
+            f"{run['shapes']['wis_batch']}")
+        out[name] = {"cuda_wall_s": run["wall_s"],
+                     "host_wall_s": other["wall_s"],
+                     "launches": run["launches"],
+                     "sims": run["sims"], "host_sims": other["sims"]}
+    print("".join(run["text"] for run in cuda.values()), flush=True)
+    return out
+
+
+def recording_engine(k4, Engine, record: dict):
+    """``ServingEngine`` that records every token pick's logits and K4's
+    launches in each prefill and decode call."""
+
+    class Recording(Engine):
+        def _prefill(self, tokens):
+            before = k4.LAUNCHES["flash_attention"]
+            out = super()._prefill(tokens)
+            record["prefill_k4"].append(k4.LAUNCHES["flash_attention"] - before)
+            return out
+
+        def _decode(self, tok, idx):
+            before = k4.LAUNCHES["flash_attention"]
+            out = super()._decode(tok, idx)
+            record["decode_k4"].append(k4.LAUNCHES["flash_attention"] - before)
+            return out
+
+        def _pick(self, logits):
+            record["picks"].append(logits.copy())
+            return super()._pick(logits)
+
+    return Recording
+
+
+def served_once(torch, k4, serve, impl: str, card: str) -> dict:
+    """``serve_batch_torch.main`` on the card through attention ``impl``,
+    K4's count set to 0 just before it and read just after."""
+    record = {"prefill_k4": [], "decode_k4": [], "picks": []}
+    Engine = serve.ServingEngine
+    serve.ServingEngine = recording_engine(k4, Engine, record)
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        k4.LAUNCHES["flash_attention"] = 0
+        k4.SHAPES.clear()
+        (reqs, steps, wall), text = printed(
+            serve.main, ["--device", "cuda", "--attn-impl", impl])
+        launches = k4.LAUNCHES["flash_attention"]
+    finally:
+        serve.ServingEngine = Engine
+    n_tok = sum(len(r.output) for r in reqs)
+    log(f"12b {impl} [{card}]: {n_tok} tokens in {steps} engine steps, "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; K4 launches {launches} "
+        f"({sum(record['decode_k4'])} in decode)")
+    return {"reqs": reqs, "steps": steps, "wall_s": wall,
+            "tok_per_s": n_tok / wall, "k4": launches, "text": text,
+            "k4_shapes": dict(k4.SHAPES), **record}
+
+
+def k4_on_served_inputs(k4_ops, k4_ref, serve) -> float:
+    """The K4 traffic served once more, each launch held against the plain
+    version on the same q, k and v; returns the largest gap."""
+    worst = [0.0]
+    launch = k4_ops.mha_cuda
+
+    def checked(q, k, v, **kw):
+        out = launch(q, k, v, **kw)
+        plain = k4_ref.mha_reference(q, k, v, **kw)
+        worst[0] = max(worst[0], float((out - plain).abs().max().item()))
+        return out
+
+    k4_ops.mha_cuda = checked
+    try:
+        printed(serve.main, ["--device", "cuda", "--attn-impl", "pallas"])
+    finally:
+        k4_ops.mha_cuda = launch
+    return worst[0]
+
+
+def serve_example(np, torch, k4, k4_ref, card: str) -> dict:
+    """12b: the batched-serving example through K4 and through auto, in
+    turns: the same tokens (a pick may part only where auto's top-1 margin
+    is at most twice the two runs' logit gap, and nothing after it is
+    gated), 4 K4 launches a prefill and 40 a run through K4, none in
+    decode or through auto, and K4 within SERVE_K4_TOL of its plain
+    version on the served inputs."""
+    from repro_torch.kernels.flash_attention import ops as k4_ops
+
+    serve = load_example("serve_batch_torch")
+    n_attn = serve.build_model().n_layers
+    runs = {"pallas": [], "auto": []}
+    with collector_off():
+        for _ in range(2):
+            for impl in ("pallas", "auto"):
+                runs[impl].append(served_once(torch, k4, serve, impl, card))
+    for pal, auto in zip(runs["pallas"], runs["auto"]):
+        for impl, run in (("pallas", pal), ("auto", auto)):
+            want = n_attn * len(run["prefill_k4"]) if impl == "pallas" else 0
+            if run["k4"] != want or any(run["decode_k4"]) or (
+                    impl == "pallas" and set(run["prefill_k4"]) != {n_attn}):
+                raise AssertionError(
+                    f"12b {impl}: K4 launched {run['k4']} times (prefills "
+                    f"{run['prefill_k4']}, decode {sum(run['decode_k4'])})")
+            if not all(r.done for r in run["reqs"]):
+                raise AssertionError(f"12b {impl}: requests left unfinished")
+        if pal["k4"] != 40:
+            raise AssertionError(f"12b: {pal['k4']} K4 launches, expected 40")
+        parted = None
+        for i, (a, b) in enumerate(zip(pal["picks"], auto["picks"])):
+            if int(np.argmax(a)) != int(np.argmax(b)):
+                gap = float(np.abs(a - b).max())
+                top2 = np.sort(b)[-2:]
+                margin = float(top2[1] - top2[0])
+                if margin > 2 * gap:
+                    raise AssertionError(
+                        f"12b: pick {i} parts though auto's margin {margin} "
+                        f"exceeds twice the logit gap {gap}")
+                parted = (i, margin, gap)
+                break
+        same = [r.output for r in pal["reqs"]] == [r.output for r in auto["reqs"]]
+        gap = max(float(np.abs(a - b).max())
+                  for a, b in zip(pal["picks"], auto["picks"]))
+        log(f"12b K4 against auto: tokens {'equal' if same else 'parted'}; "
+            f"largest logit gap over {len(pal['picks'])} picks {gap:.4g}"
+            + ("" if parted is None else
+               f"; first parted pick {parted[0]} at a near-tie (margin "
+               f"{parted[1]:.4g}, gap {parted[2]:.4g})"))
+    log(f"  K4 shapes (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, "
+        f"q_offset): {runs['pallas'][0]['k4_shapes']}")
+    worst = k4_on_served_inputs(k4_ops, k4_ref, serve)
+    if not worst <= SERVE_K4_TOL:
+        raise AssertionError(f"12b: K4 {worst} from its plain version on the "
+                             f"served inputs (tolerance {SERVE_K4_TOL})")
+    log(f"12b: K4 within {worst:.3g} of its plain version on the served "
+        f"prefills' inputs (tolerance {SERVE_K4_TOL})")
+    print(runs["pallas"][0]["text"], end="", flush=True)
+    return {"k4_launches": runs["pallas"][0]["k4"], "k4_max_abs_err": worst,
+            "tokens_equal": [[r.output for r in p["reqs"]] ==
+                             [r.output for r in a["reqs"]]
+                             for p, a in zip(runs["pallas"], runs["auto"])],
+            **{impl: [{"wall_s": r["wall_s"], "tok_per_s": r["tok_per_s"],
+                       "steps": r["steps"]} for r in rs]
+               for impl, rs in runs.items()}}
+
+
+def bits(torch, t):
+    """A tensor's bits, for a bit-for-bit comparison."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+def train_example_steps(torch, rec: dict, card: str, n: int = 3) -> dict:
+    """``n`` more steps of a finished 12c run, each timed on the host clock
+    between synchronises, then one under torch.profiler."""
+    from repro_torch.checkpoint.store import tree_flatten
+
+    state, data, step_fn = rec["state"], rec["data"], rec["step_fn"]
+    first = rec["start"] + len(rec["losses"])
+    dev = tree_flatten(state["params"])[0][0].device
+
+    def step(i):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(i).items()}
+        state["params"], state["opt"], m = step_fn(
+            state["params"], state["opt"], batch, i)
+        return float(m["loss"])
+
+    times = []
+    for i in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"12c steady steps [{card}]: {[round(1e3 * t, 2) for t in times]} ms "
+        "(host clock, synchronised)")
+    return {"step_ms": [1e3 * t for t in times],
+            "profile": train_profile(torch, lambda: step(first + n),
+                                     f"12c one more step (step {first + n})",
+                                     card)}
+
+
+def train_example(torch, card: str) -> dict:
+    """12c: the 100M-parameter example at full width on the card for
+    TRAIN_FIRST steps into a new directory, then a second ``main`` on it to
+    TRAIN_TOTAL: it resumes from step TRAIN_FIRST, the store gives back the
+    first run's final state bit for bit, and the loss falls in both runs.
+    Each ``save`` (the wait for the previous write and the copy to the
+    host) is timed; the directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.store import tree_flatten
+
+    train = load_example("train_100m_torch")
+    Store = train.CheckpointStore
+    saves = []
+
+    class TimedStore(Store):
+        def save(self, step, tree, *, blocking=False):
+            t0 = time.perf_counter()
+            self.wait()
+            t1 = time.perf_counter()
+            super().save(step, tree, blocking=blocking)
+            saves.append((t1 - t0, time.perf_counter() - t1))
+
+    tmp = tempfile.mkdtemp(prefix="train_100m_")
+    train.CheckpointStore = TimedStore
+    out = {}
+    try:
+        for tag, steps in (("first", TRAIN_FIRST), ("resumed", TRAIN_TOTAL)):
+            saves.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rec, text = printed(train.main, ["--steps", str(steps),
+                                             "--ckpt-dir", tmp])
+            wall = time.perf_counter() - t0
+            job = rec["job"]
+            run_s = sum(m["wall"] for m in job.metrics_log)
+            n = job.steps_done
+            row = {"steps": n, "start": rec["start"],
+                   "chunks": len(job.metrics_log), "wall_s": wall,
+                   "ms_per_step": 1e3 * run_s / n,
+                   "tokens_per_s": TRAIN_100M_TOKENS * n / run_s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "save_wait_s": [w for w, _ in saves],
+                   "save_copy_s": [c for _, c in saves],
+                   "loss_first": rec["losses"][0],
+                   "loss_last": rec["losses"][-1],
+                   "n_params": rec["n_params"]}
+            log(f"12c {tag} [{card}]: {n} steps from {rec['start']} in "
+                f"{row['chunks']} chunks, {row['ms_per_step']:.2f} ms a step "
+                f"(chunk walls), {row['tokens_per_s']:.1f} tokens/s, peak "
+                f"{row['peak_gb']:.3f} GB, loss {row['loss_first']:.4f} → "
+                f"{row['loss_last']:.4f}; save: wait "
+                f"{[round(x, 3) for x in row['save_wait_s']]} s, copy "
+                f"{[round(x, 3) for x in row['save_copy_s']]} s; {wall:.1f} s")
+            print(text, end="", flush=True)
+            if tag == "first":
+                if n != TRAIN_FIRST or rec["start"] != 0:
+                    raise AssertionError(f"12c: first run did {n} steps from "
+                                         f"{rec['start']}")
+                template = {"params": rec["state"]["params"],
+                            "opt": rec["state"]["opt"]}
+                restored, step = rec["store"].restore(template)
+                saved = tree_flatten(template)[0]
+                back = tree_flatten(restored)[0]
+                if step != TRAIN_FIRST or len(saved) != len(back) or not all(
+                        a.device == b.device and torch.equal(bits(torch, a),
+                                                             bits(torch, b))
+                        for a, b in zip(saved, back)):
+                    raise AssertionError("12c: the restored tree is not the "
+                                         "saved one bit for bit")
+                row["leaves_bit_equal"] = len(back)
+                del restored, back, saved, template
+            else:
+                if (f"resumed from checkpoint step {TRAIN_FIRST}" not in text
+                        or rec["start"] != TRAIN_FIRST
+                        or n != TRAIN_TOTAL - TRAIN_FIRST):
+                    raise AssertionError(f"12c: the second run did not resume "
+                                         f"from step {TRAIN_FIRST}")
+                row["after"] = train_example_steps(torch, rec, card)
+            if not all(math.isfinite(x) for x in rec["losses"]) or not \
+                    rec["losses"][-1] < rec["losses"][0]:
+                raise AssertionError(f"12c {tag}: loss did not fall: "
+                                     f"{rec['losses']}")
+            out[tag] = row
+            del rec, job
+    finally:
+        train.CheckpointStore = Store
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"12c: restored tree bit-equal ({out['first']['leaves_bit_equal']} "
+        f"leaves); {tmp} removed")
+    free_card(torch, "12c")
+    return out
+
+
+def examples_path(np, torch, dev, k1, k2, k4, k4_ref, card: str, *,
+                  full_study: bool = False) -> dict:
+    """Phase 12: the three examples through the port's entry points.  12a
+    the cluster study's four sections to STUDY_T_END through K1 and K2 on
+    the card against the plain torch versions on the host, 12b batched
+    serving through K4 and auto, 12c the 100M-parameter run and its resume;
+    with ``full_study`` (``--only examples``) the study at its own length
+    through K1 and K2 last."""
+    t_phase = time.perf_counter()
+    study = load_example("cluster_study_torch")
+    sections = study_sections(STUDY_T_END)
+    with collector_off():
+        cuda = run_study(k1, k2, study, sections, "cuda", "cuda")
+        host = run_study(k1, k2, study, sections, "cpu", "torch")
+    out = {"12a": study_gates(cuda, host, card)}
+    out["12b"] = serve_example(np, torch, k4, k4_ref, card)
+    out["12c"] = train_example(torch, card)
+    out["launches"] = {
+        k: sum(s["launches"][k] for s in out["12a"].values())
+        for k in ("jasda_score", "wis_batch")}
+    out["launches"]["flash_attention"] = out["12b"]["k4_launches"]
+    if full_study:
+        t0 = time.perf_counter()
+        runs = run_study(k1, k2, study, study_sections(6000.0), "cuda", "cuda")
+        for name, run in runs.items():
+            log(f"full study {name} [{card}]: {run['wall_s']:.1f} s, launches "
+                f"{run['launches']}")
+        print("".join(run["text"] for run in runs.values()), flush=True)
+        out["full_study"] = {name: {"wall_s": run["wall_s"],
+                                    "launches": run["launches"],
+                                    "text": run["text"]}
+                             for name, run in runs.items()}
+        log(f"full study: {time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 took {out['wall_s']:.1f} s")
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """Run one phase of the script and print its wall time."""
     t0 = time.perf_counter()
@@ -4006,9 +4477,9 @@ def main(argv) -> int:
     if argv:
         if argv[:1] != ["--only"] or argv[1:] not in (
                 ["wis"], ["service"], ["train"], ["models"], ["xattn"],
-                ["mesh"], ["shard"]):
+                ["mesh"], ["shard"], ["examples"]):
             return fail(f"usage: chip_smoke.py [--only wis|service|train|"
-                        f"models|xattn|mesh|shard], not {argv}")
+                        f"models|xattn|mesh|shard|examples], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -4093,6 +4564,12 @@ def main(argv) -> int:
             launches=sum(r["k4_launches"] for r in shard["11a"].values()),
             **k4_row)], "shard": shard}, default=str), flush=True)
         return 0
+    if only == "examples":  # the build, the examples, the full-length study
+        examples = phase("12", examples_path, np, torch, dev, k1, k2, k4,
+                         k4_ref, card, full_study=True)
+        print(card, flush=True)
+        print(json.dumps({"examples": examples}, default=str), flush=True)
+        return 0
     if only == "service":  # the build, then the streaming service alone
         service = service_path(dev, k1, k2)
         print(card, flush=True)
@@ -4140,6 +4617,8 @@ def main(argv) -> int:
                  common, reports, run)
     phase("11", shard_path, np, torch, dev, k4, card, models=models,
           training=training)
+    examples = phase("12", examples_path, np, torch, dev, k1, k2, k4, k4_ref,
+                     card)
 
     kernels = [
         dict(name="jasda_score", route="cuda",
@@ -4155,6 +4634,7 @@ def main(argv) -> int:
         k["launches_per_round"] = k["launches"] / max(run["rounds"], 1)
         k["service_launches"] = service["6a"]["launches"][k["name"]]
         k["mesh4_launches"] = mesh["10b"]["pipelined"]["account"][k["name"]]
+        k["examples_launches"] = examples["launches"][k["name"]]
     kernels.append(dict(
         name="linear_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -4172,7 +4652,8 @@ def main(argv) -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:108",
         launches=hybrid["k4_launches"],
-        model_launches=models["k4_launches"] | xattn["k4_launches"], **k4_row))
+        model_launches=models["k4_launches"] | xattn["k4_launches"],
+        examples_launches=examples["launches"]["flash_attention"], **k4_row))
     kernels.append(dict(
         name="wis_dp", route="cuda",
         source="src/repro_torch/kernels/csrc/wis_batch.cu",

@@ -10,8 +10,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "examples" / "quickstart_torch.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"{name}_torch.py"
+    for name in ("quickstart", "cluster_study", "serve_batch", "train_100m")]
 
 
 def _imported_modules(path: Path):
