@@ -1,0 +1,73 @@
+"""A later change adds a cell or a per-layer metric with new files and
+new entries alone: run.py finds both by name, no file edited."""
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def _digests(root: Path) -> dict:
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
+
+
+def test_new_cell_and_metric_are_found_by_name(tmp_path):
+    shutil.copytree(ROOT / "bench", tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = _digests(tmp_path)
+    b = tmp_path / "bench"
+    cell = json.loads((b / "workloads" / "mig-pod64.stream.json").read_text())
+    cell.update(name="mig-pod64.trickle", traffic="trickle")
+    cell["params"].update(rate=2.0, warmup_t=2.0)
+    (b / "workloads" / "mig-pod64.trickle.json").write_text(json.dumps(cell))
+    (b / "metrics" / "rounds_seen.py").write_text(
+        "def read(ctx):\n    return float(ctx['h'].counters['rounds'])\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "mig-pod64.trickle", "config": "mig-pod64",
+                               "traffic": "trickle", "chips": 1, "why": "test"})
+    bench["per_layer"].append({"name": "rounds_seen", "unit": "count",
+                               "better": "higher", "source": "program_counter",
+                               "layer": "event loop", "moves": "round_ms",
+                               "workloads": ["mig-pod64.trickle"]})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "mig-pod64.stream" in m.get("workloads", ()):
+            m["workloads"].append("mig-pod64.trickle")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    after = _digests(tmp_path)
+    assert all(after[k] == v for k, v in before.items()
+               if k.name != "BENCHMARK.json")
+
+    code = ("import json, sys\n"
+            "from bench import run\n"
+            "r, h = run.measure(['--workload', 'mig-pod64.trickle', '--seed', "
+            "'5', '--seconds', '0.5', '--trace', '1'], device='cpu')\n"
+            "print(json.dumps(r))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT / "src")]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"]
+    assert result["metrics"]["rounds_seen"]["value"] > 0
+    assert "event_loop_pct" in result["metrics"]
+
+
+def test_run_fails_without_the_program(tmp_path):
+    shutil.copytree(ROOT / "bench", tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "bench/run.py", "--workload",
+                          "mig-pod64.stream", "--seed", "1", "--seconds", "1"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
