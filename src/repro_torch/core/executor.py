@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..runtime import trace
 from ..runtime.monitor import HealthMonitor
 from .jobs import AgentConfig, JobAgent
 from .scheduler import JasdaScheduler
@@ -92,7 +93,9 @@ class JasdaExecutor:
         last_progress = self.now()
         pending: List[Variant] = []
         while self.now() < max_wall:
-            result = self.scheduler.step(self.now())
+            now = self.now()
+            with trace.span("executor.round", now=now):
+                result = self.scheduler.step(now)
             if result and result.selected:
                 pending.extend(result.selected)
                 last_progress = self.now()
@@ -103,7 +106,9 @@ class JasdaExecutor:
             for v in list(pending):
                 if v.t_start <= self.now() + 1e-6:
                     pending.remove(v)
-                    self._execute(v)
+                    with trace.span("executor.chunk", job_id=v.job_id,
+                                    slice_id=v.slice_id):
+                        self._execute(v)
                     ran = True
                     last_progress = self.now()
                     break
@@ -111,7 +116,8 @@ class JasdaExecutor:
                 if all(j.steps_done >= j.total_steps for j in self.jobs.values()):
                     return
                 if self.now() - last_progress > idle_exit:
-                    time.sleep(0.01)
+                    with trace.span("executor.idle"):
+                        time.sleep(0.01)
 
     # -- chunk execution --------------------------------------------------------
     def _execute(self, v: Variant) -> None:

@@ -88,10 +88,12 @@ class RoundPipeline:
     # -- public ----------------------------------------------------------------
     def tick(self, now: float, next_time: Optional[float] = None) -> Optional[RoundResult]:
         """Run the round at ``now``; speculatively prepare ``next_time``."""
+        speculated = self._spec is not None
         prep = self._take_validated(now)
         if prep is None:
             self.stats["serial_prep"] += 1
             prep = self.sched._prepare_round(now)
+            prep.origin = "discarded" if speculated else "serial"
         # Overlap window: the current round's scores are (possibly) in
         # flight; prepare the next round's host half now.  Only worthwhile
         # when something is actually in flight — eager paths (empty round,
@@ -147,9 +149,11 @@ class RoundPipeline:
         if len(kept) == len(spec.windows):
             self.stats["spec_hit"] += 1
             self._consec_discards = 0
+            spec.origin = "hit"
             return spec  # bit-identical to a serial preparation
         self.stats["spec_filtered"] += 1
         self._consec_discards = 0
+        spec.origin = "filtered"
         # Some speculated windows were killed by the round that settled in
         # between.  Timeline/agents/ages are untouched (epoch matched), so
         # the surviving windows' bids are exactly what a fresh announcement

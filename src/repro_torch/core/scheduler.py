@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..runtime import trace
 from ..runtime.monitor import retry_with_backoff
 from .calibration import CalibrationConfig, Calibrator
 from .clearing import assign_bids
@@ -297,6 +298,9 @@ class RoundPrep:
     wis_prefetch: Optional[object] = None
     stats_snap: Optional[Dict[str, Tuple[int, int]]] = None  # speculative only
     n_dropped: int = 0  # agents dropped by the bid-collection fault gate
+    # where a pipelined round's preparation came from ("hit", "filtered",
+    # "discarded", "serial": core/pipeline.py); None outside the pipeline
+    origin: Optional[str] = None
 
 
 class JasdaScheduler:
@@ -643,17 +647,28 @@ class JasdaScheduler:
         back if the preparation is discarded; variant ids are deterministic
         (jobs.py), so generation itself is replayable.
         """
-        self._dead_windows.prune(now)
-        windows = announce_windows(
-            self.slices, now, self.policy.window, exclude=self._dead_windows,
-            demand=self.window_demand,
-        )
-        if not windows:
-            return RoundPrep(now=now, epoch=self._epoch, windows=[])
-        return self._build_prep(now, windows, speculative=speculative)
+        with trace.span("round.bids", now=now, speculative=speculative):
+            self._dead_windows.prune(now)
+            windows = announce_windows(
+                self.slices, now, self.policy.window,
+                exclude=self._dead_windows, demand=self.window_demand,
+            )
+            if not windows:
+                return RoundPrep(now=now, epoch=self._epoch, windows=[])
+            prep = self._bid_prep(now, windows, speculative)
+        self._finalize_prep(prep)
+        return prep
 
     def _build_prep(
         self, now: float, windows: List[Window], *, speculative: bool = False
+    ) -> RoundPrep:
+        with trace.span("round.bids", now=now, speculative=speculative):
+            prep = self._bid_prep(now, windows, speculative)
+        self._finalize_prep(prep)
+        return prep
+
+    def _bid_prep(
+        self, now: float, windows: List[Window], speculative: bool
     ) -> RoundPrep:
         # Steps 2–3: every job answers the full window set (or stays silent)
         # through the typed negotiation protocol (one WindowAnnouncement in,
@@ -670,12 +685,10 @@ class JasdaScheduler:
         # bundle groups are consumed read-only (pooling, pipeline refilter
         # rebuilds outer lists) — keep the frozen tuples, no unwrap copy
         bids, n_dropped = self._collect_bids(agents, announcement)
-        prep = RoundPrep(
+        return RoundPrep(
             now=now, epoch=self._epoch, windows=list(windows),
             agents=agents, bids=bids, stats_snap=snap, n_dropped=n_dropped,
         )
-        self._finalize_prep(prep)
-        return prep
 
     def _collect_bids(
         self, agents: List[JobAgent], announcement: WindowAnnouncement
@@ -731,6 +744,14 @@ class JasdaScheduler:
         Factored out so the pipeline can re-run it after dropping the bids
         of invalidated (suppressed-since-speculation) windows.
         """
+        with trace.span("round.pack", now=prep.now,
+                        speculative=prep.stats_snap is not None) as sp:
+            self._pack_prep(prep)
+            if sp is not None:
+                sp.attrs.update(bids=len(prep.pool),
+                                windows=len(prep.windows))
+
+    def _pack_prep(self, prep: RoundPrep) -> None:
         pool: List[Variant] = []
         bidders = 0
         budget: Dict[str, float] = {}
@@ -799,25 +820,34 @@ class JasdaScheduler:
         if not prep.windows:
             self._append_log(IterationLog(prep.now, None, 0, 0, 0, 0.0))
             return None
-        scores = prep.handle.result() if prep.handle is not None else np.zeros(0)
-        if prep.energy is not None:
-            scores = scores + prep.energy
-        # Step 4b: selection + conflict resolution, dispatched through the
-        # configured clearing backend (Policy.clearing; GreedyWIS default)
-        # with the configured WIS selector; the fused first-pass prefetch is
-        # forwarded only to backends that declare support for it (custom
-        # backends with the original settle signature stay compatible).
-        kw = {}
-        if (prep.wis_prefetch is not None
-                and getattr(self.policy.clearing, "supports_prefetch", False)):
-            kw["prefetch"] = prep.wis_prefetch
-        rr = self.policy.clearing.settle(
-            prep.windows, prep.fit, prep.win_idx, scores,
-            selector=self._wis_selector,
-            work_budget=prep.budget, view=prep.view, ages=prep.ages,
-            **kw,
-        )
+        now = prep.now
+        with trace.span("round.settle", now=now, prep=prep.origin):
+            scores = (prep.handle.result() if prep.handle is not None
+                      else np.zeros(0))
+            if prep.energy is not None:
+                scores = scores + prep.energy
+            # Step 4b: selection + conflict resolution, dispatched through
+            # the configured clearing backend (Policy.clearing; GreedyWIS
+            # default) with the configured WIS selector; the fused
+            # first-pass prefetch is forwarded only to backends that
+            # declare support for it (custom backends with the original
+            # settle signature stay compatible).
+            kw = {}
+            if (prep.wis_prefetch is not None
+                    and getattr(self.policy.clearing, "supports_prefetch",
+                                False)):
+                kw["prefetch"] = prep.wis_prefetch
+            rr = self.policy.clearing.settle(
+                prep.windows, prep.fit, prep.win_idx, scores,
+                selector=self._wis_selector,
+                work_budget=prep.budget, view=prep.view, ages=prep.ages,
+                **kw,
+            )
+        with trace.span("round.commit", now=now):
+            self._commit_round(prep, rr)
+        return rr
 
+    def _commit_round(self, prep: RoundPrep, rr: RoundResult) -> None:
         # Step 5: commit winners; suppress windows that cleared empty.
         now = prep.now
         for result in rr.results:
@@ -869,7 +899,6 @@ class JasdaScheduler:
                 n_conflicts=rr.n_conflicts, n_dropped=prep.n_dropped,
             )
         )
-        return rr
 
     # -- bounded bookkeeping ---------------------------------------------------
     def _record_commit(self, v: Variant, now: float, score: float) -> None:

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..runtime import trace
 from .types import Variant, Window
 
 __all__ = [
@@ -289,7 +290,8 @@ class ScoreHandle:
     def result(self) -> np.ndarray:
         if not isinstance(self._scores, np.ndarray):
             # the copy to the host waits for the launch to land
-            arr = self._scores.to("cpu").numpy().astype(np.float64)
+            with trace.span("device.wait"):
+                arr = self._scores.to("cpu").numpy().astype(np.float64)
             self._scores = arr[: self._m] if self._m is not None else arr
         return self._scores
 

@@ -50,6 +50,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime import trace
 from .types import OVERLAP_EPS
 
 __all__ = [
@@ -320,7 +321,8 @@ class SettlePrefetch:
         packed = self.packed
         # the copy to the host waits for the fused launch; a device fault
         # surfaces here as it is (no silent step down the ladder)
-        sel = self._raw.to("cpu").numpy()[: packed.n_windows]
+        with trace.span("device.wait"):
+            sel = self._raw.to("cpu").numpy()[: packed.n_windows]
         first_pass = [
             [int(i) for i in packed.idx_sorted[k][np.flatnonzero(sel[k])]]
             for k in range(packed.n_windows)
@@ -582,7 +584,8 @@ class RoundSelector:
                 sel, _ = wis_ops.wis_settle_batch(
                     wp.astype(np.float32), pp, impl=impl,
                     device=self.torch_device, mesh=self.mesh)
-                return sel.to("cpu").numpy()[:r]
+                with trace.span("device.wait"):
+                    return sel.to("cpu").numpy()[:r]
             except KernelDispatchError as exc:
                 if self.health is None:
                     raise
@@ -727,7 +730,8 @@ def wis_select_batch(starts, ends, weights, valid=None, *, impl: str = "numpy",
 
         dev_sel, _ = wis_ops.wis_settle_batch(
             w_s.astype(np.float32), pred, impl=impl, device=device)
-        sel_sorted = dev_sel.to("cpu").numpy()
+        with trace.span("device.wait"):
+            sel_sorted = dev_sel.to("cpu").numpy()
     rows = np.repeat(np.arange(w), lanes).reshape(w, lanes)
     sel[rows, order] = sel_sorted
     sel &= valid

@@ -41,6 +41,7 @@ from ..core.events import (ARRIVE, CANCEL, COMPLETE, DEADLINE, REPARTITION,
 from ..core.jobs import AgentConfig, JobAgent
 from ..core.negotiation.messages import build_shed_feedback
 from ..core.types import SliceSpec
+from ..runtime import trace
 from ..runtime.monitor import HealthConfig, HealthMonitor
 from .admission import AcceptAll, AdmissionPolicy, BoundedQueue, \
     queue_bound_for_bucket
@@ -48,6 +49,11 @@ from .arrivals import ArrivalProcess, DeadlineExpired, JobArrival, JobCancel
 from .metrics import ServiceMetrics, ServiceStats
 
 __all__ = ["ServiceConfig", "JasdaService", "AwardRecord"]
+
+#: the ``kind`` of each event on its ``service.event`` span
+EVENT_NAMES = {TICK: "tick", COMPLETE: "complete", ARRIVE: "arrive",
+               CANCEL: "cancel", DEADLINE: "deadline",
+               REPARTITION: "repartition"}
 
 
 @dataclass(frozen=True)
@@ -196,27 +202,28 @@ class JasdaService:
             pipe = RoundPipeline(self.scheduler)
 
         while self.heap:
+            if self.heap.peek()[0] > horizon:
+                break  # the event stays queued for the next run() call
             if checkpoint is not None and self.heap.peek()[1] == TICK:
                 if self.round_count % max(1, checkpoint_every) == 0:
                     if pipe is not None:
                         pipe.flush()
                     checkpoint.save_state(self.round_count, self)
             t, kind, _seq, payload = self.heap.pop()
-            if t > horizon:
-                break
             self.now = t
-            if kind == TICK:
-                self._on_tick(t, horizon, pipe)
-            elif kind == COMPLETE:
-                self._on_complete(payload, t)
-            elif kind == ARRIVE:
-                self._on_arrival(payload, t)
-            elif kind == CANCEL:
-                self._on_cancel(payload.job_id, t, expired=False)
-            elif kind == DEADLINE:
-                self._on_cancel(payload.job_id, t, expired=True)
-            elif kind == REPARTITION:
-                self._on_repartition(t, horizon)
+            with trace.span("service.event", kind=EVENT_NAMES[kind], now=t):
+                if kind == TICK:
+                    self._on_tick(t, horizon, pipe)
+                elif kind == COMPLETE:
+                    self._on_complete(payload, t)
+                elif kind == ARRIVE:
+                    self._on_arrival(payload, t)
+                elif kind == CANCEL:
+                    self._on_cancel(payload.job_id, t, expired=False)
+                elif kind == DEADLINE:
+                    self._on_cancel(payload.job_id, t, expired=True)
+                elif kind == REPARTITION:
+                    self._on_repartition(t, horizon)
 
         if pipe is not None:
             pipe.flush()
@@ -242,8 +249,9 @@ class JasdaService:
         cfg = self.cfg
         # stage the next round-interval of arrivals so they interleave
         # with this heap (an arrival at t ∈ (now, now+dt] pops before the
-        # tick at now+dt: ARRIVE orders before TICK at equal timestamps)
-        for ev in self.arrivals.take_until(min(now + cfg.round_dt, horizon)):
+        # tick at now+dt: ARRIVE orders before TICK at equal timestamps);
+        # those past the horizon wait in the heap for the next run() call
+        for ev in self.arrivals.take_until(now + cfg.round_dt):
             if isinstance(ev, JobArrival):
                 self.heap.push(ev.t, ARRIVE, ev)
             elif isinstance(ev, JobCancel):
@@ -259,10 +267,11 @@ class JasdaService:
         self.metrics.n_rounds += 1
         self.round_count += 1
         nxt = now + cfg.round_dt
-        if pipe is not None:
-            rr = pipe.tick(now, next_time=nxt if nxt <= horizon else None)
-        else:
-            rr = self.scheduler.run_round(now)
+        with trace.span("service.round", now=now):
+            if pipe is not None:
+                rr = pipe.tick(now, next_time=nxt if nxt <= horizon else None)
+            else:
+                rr = self.scheduler.run_round(now)
         if rr is not None:
             # every live job saw this announcement; first-seen is the
             # announce timestamp of its decision path
@@ -276,8 +285,7 @@ class JasdaService:
                         v.slice_id))
             self.exec.pending.extend(rr.selected)
         self.exec.launch_due(now, cfg.round_dt, self.dead_slices)
-        if nxt <= horizon:
-            self.heap.push(nxt, TICK)
+        self.heap.push(nxt, TICK)
 
     def _on_repartition(self, now: float, horizon: float) -> None:
         """Between-rounds repartition opportunity (periodic heap event).
@@ -291,8 +299,7 @@ class JasdaService:
             nxt = now + (self.cfg.repartition_dt
                          if self.cfg.repartition_dt is not None
                          else self.cfg.round_dt)
-            if nxt <= horizon:
-                self.heap.push(nxt, REPARTITION)
+            self.heap.push(nxt, REPARTITION)
 
     def _on_arrival(self, ev: JobArrival, now: float) -> None:
         self.metrics.n_arrived += 1

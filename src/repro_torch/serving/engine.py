@@ -28,6 +28,7 @@ import torch
 
 from ..kernels.common import resolve_device
 from ..models.model import Model
+from ..runtime import trace
 
 __all__ = ["Request", "ServeConfig", "ServingEngine"]
 
@@ -71,6 +72,7 @@ class ServingEngine:
         self.last_token = np.zeros((B,), np.int32)
         self.slots: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
+        self._queued_at = {}  # id(request) -> trace.stamp() at submit
         self._rng = np.random.default_rng(cfg.seed)
 
     # -- the two model calls (the reference jits these) ---------------------
@@ -84,25 +86,33 @@ class ServingEngine:
 
     # -- request lifecycle ------------------------------------------------
     def submit(self, req: Request) -> None:
+        t = trace.stamp()
+        if t is not None:
+            self._queued_at[id(req)] = t
         self.queue.append(req)
 
     def _claim_slots(self) -> None:
         for b in range(self.cfg.batch_slots):
             if self.slots[b] is None and self.queue:
                 req = self.queue.pop(0)
+                trace.record("request.queued",
+                             self._queued_at.pop(id(req), None),
+                             request_id=req.request_id)
                 self._prefill_into_slot(b, req)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(self.device)
 
     def _prefill_into_slot(self, b: int, req: Request) -> None:
-        logits, cache1, _ = self._prefill(self._to_device(req.prompt[None, :]))
-        # copy the single-row cache into slot b of the shared cache
-        _place(self.cache, cache1, b)
-        self.slots[b] = req
-        self.positions[b] = len(req.prompt)
-        self.last_token[b] = self._pick(_host(logits)[0])
-        req.output.append(int(self.last_token[b]))
+        with trace.span("engine.prefill", request_id=req.request_id):
+            logits, cache1, _ = self._prefill(
+                self._to_device(req.prompt[None, :]))
+            # copy the single-row cache into slot b of the shared cache
+            _place(self.cache, cache1, b)
+            self.slots[b] = req
+            self.positions[b] = len(req.prompt)
+            self.last_token[b] = self._pick(_host(logits)[0])
+            req.output.append(int(self.last_token[b]))
 
     def _pick(self, logits: np.ndarray) -> int:
         if self.cfg.greedy:
@@ -122,21 +132,25 @@ class ServingEngine:
         active = [b for b in range(self.cfg.batch_slots) if self.slots[b] is not None]
         if not active:
             return 0
-        logits, self.cache = self._decode(self._to_device(self.last_token),
-                                          self._to_device(self.positions))
-        logits = _host(logits)
-        for b in active:
-            req = self.slots[b]
-            nxt = self._pick(logits[b])
-            req.output.append(nxt)
-            self.positions[b] += 1
-            self.last_token[b] = nxt
-            hit_eos = req.eos_id is not None and nxt == req.eos_id
-            full = len(req.output) >= req.max_new_tokens or \
-                self.positions[b] >= self.cfg.max_seq - 1
-            if hit_eos or full:
-                req.done = True
-                self.slots[b] = None  # slot freed; cache row is overwritten
+        with trace.span("engine.decode", slots=len(active)):
+            logits, self.cache = self._decode(
+                self._to_device(self.last_token),
+                self._to_device(self.positions))
+        with trace.span("engine.logits"):
+            logits = _host(logits)
+        with trace.span("engine.pick"):
+            for b in active:
+                req = self.slots[b]
+                nxt = self._pick(logits[b])
+                req.output.append(nxt)
+                self.positions[b] += 1
+                self.last_token[b] = nxt
+                hit_eos = req.eos_id is not None and nxt == req.eos_id
+                full = len(req.output) >= req.max_new_tokens or \
+                    self.positions[b] >= self.cfg.max_seq - 1
+                if hit_eos or full:
+                    req.done = True
+                    self.slots[b] = None  # slot freed; cache row is overwritten
         return sum(1 for s in self.slots if s is not None)
 
     def run_until_done(self, max_steps: int = 10_000) -> None:

@@ -272,6 +272,27 @@ def test_device_backends_on_64_slice_cluster_match_reference():
 # durability through the ported store
 # ---------------------------------------------------------------------------
 
+def test_second_run_call_continues_the_rounds():
+    """``run(t)`` leaves the first event past ``t`` queued, and a round tick
+    is queued past the horizon too, so a second ``run`` call goes on where
+    the first stopped: the port's soak in two calls equals one soak.  The
+    reference pops that event and drops it, and queues no tick past the
+    horizon: its second call runs no round (ROADMAP, Divergences)."""
+    got = {}
+    for ns in (REF, PORT):
+        whole = _service(ns)
+        one = _soak_key(whole, whole.run(t_end=60.0))
+        split = _service(ns)
+        split.run(t_end=30.0)
+        two = _soak_key(split, split.run(t_end=60.0))
+        got[ns is PORT] = (one, two, whole.round_count, split.round_count)
+    ref_one, ref_two, ref_whole, ref_split = got[False]
+    assert ref_whole == 61 and ref_split == 31 and ref_two != ref_one
+    port_one, port_two, port_whole, port_split = got[True]
+    assert port_one == ref_one
+    assert port_two == port_one and port_split == port_whole == 61
+
+
 def test_crash_restart_replays_reference_soak(tmp_path):
     store = PORT.checkpoint.CheckpointStore(str(tmp_path), keep=10)
     svc = _service(PORT, _poisson(PORT, cancel_fraction=0.05))
