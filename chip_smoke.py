@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only wis       # phases 1, 2 (K1, K2) and 2e alone
     python3 chip_smoke.py --only service   # phases 1 and 6 alone
     python3 chip_smoke.py --only train     # phases 1 and 7 alone
+    python3 chip_smoke.py --only serve     # phases 1, 2c, 2d, 4 and 5 alone
     python3 chip_smoke.py --only models    # phases 1, 2d and 8 alone
     python3 chip_smoke.py --only xattn     # phases 1, 2d and 9 alone
     python3 chip_smoke.py --only mesh      # phases 1, 2 (K1, K2), 3 and 10 alone
@@ -93,7 +94,8 @@ Phases (any failure exits non-zero and prints no result):
 4. the serving path: falcon-mamba-7b at full width (64 layers, d_model
    4096, bfloat16, vocab 65,024), initialised on the card from a seed,
    serves 8 seeded greedy requests of 128-1024 prompt tokens and 32 new
-   tokens through ``ServingEngine`` (4 slots, max_seq 2048), once through
+   tokens through ``ServingEngine`` (4 slots, max_seq 2048; its decode
+   step a CUDA graph, as on every engine on the card), once through
    K5 and once through the plain scan on the card.  Every request must
    finish, the tokens of the two runs must be identical, so must each
    prefill's last logits and the cache states it hands to its slot (bit
@@ -1441,7 +1443,8 @@ def serve_requests(torch, dev, model, params, prompts, *, max_new: int,
     """Serve ``prompts`` through ``ServingEngine`` (4 slots); returns the
     requests, host-clock timings of each prefill and each decode step, and
     what each prefill returned (its last logits and, with ``cache_leaves``,
-    its cache leaves).  Each model call runs inside a profiler range named
+    its cache leaves).  Each prefill and each step's decode of the slots
+    (its CUDA graph's capture or replay) runs inside a profiler range named
     after its phase that starts and ends with a device synchronise, so
     every kernel it launched also ran inside the range."""
     from torch.profiler import record_function
@@ -1470,7 +1473,7 @@ def serve_requests(torch, dev, model, params, prompts, *, max_new: int,
         return call
 
     eng._prefill = timed("prefill", eng._prefill)
-    eng._decode = timed("decode", eng._decode)
+    eng._decode_slots = timed("decode", eng._decode_slots)
     reqs = [Request(f"r{i}", p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
@@ -4476,10 +4479,10 @@ def main(argv) -> int:
     only = None
     if argv:
         if argv[:1] != ["--only"] or argv[1:] not in (
-                ["wis"], ["service"], ["train"], ["models"], ["xattn"],
-                ["mesh"], ["shard"], ["examples"]):
+                ["wis"], ["service"], ["train"], ["serve"], ["models"],
+                ["xattn"], ["mesh"], ["shard"], ["examples"]):
             return fail(f"usage: chip_smoke.py [--only wis|service|train|"
-                        f"models|xattn|mesh|shard|examples], not {argv}")
+                        f"serve|models|xattn|mesh|shard|examples], not {argv}")
         only = argv[1]
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -4528,6 +4531,15 @@ def main(argv) -> int:
             launches=training["7c"]["launches"]["linear_scan_bwd"],
             library_ms=None, **training["7a"])], "training": training}),
             flush=True)
+        return 0
+    if only == "serve":  # the build, K5 and K4 alone, then the served models
+        phase("2c", check_scan_kernel, torch, dev, k5, k5_ref)
+        phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)
+        served = phase("4", serving_path, np, torch, dev, k5, card)
+        hybrid = phase("5", hybrid_serving_path, np, torch, dev, k4, k5, card)
+        print(card, flush=True)
+        print(json.dumps({"serving": served, "hybrid": hybrid}, default=str),
+              flush=True)
         return 0
     if only == "models":  # the build, K4 alone, then the new configs
         k4_row = phase("2d", check_attention_kernel, np, torch, dev, k4, k4_ref)

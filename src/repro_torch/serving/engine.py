@@ -11,6 +11,16 @@ next queued request claims them -- classic continuous batching.  Tokens
 are picked on the host from the full padded-vocab logits, as the
 reference picks them.
 
+On the card the decode step of every slot is one CUDA graph: the shapes
+are fixed per engine (B slots, ``max_seq``), the cache is written in
+place, and the tokens and positions go in as (B,) tensors.  The first
+step runs eagerly on a side stream and is captured there; each later
+step copies its tokens and positions into the graph's input tensors and
+replays it, so the host enqueues one graph in place of every layer's
+kernels.  A replay launches the same kernels on the same tensors as the
+eager step.  On the CPU, and for the families outside
+``GRAPH_FAMILIES``, the step stays eager.
+
 ``attn_impl`` is the reference's own ``Model.prefill(impl=...)`` argument
 (its trainer calls it ``attn_impl``), carried through to the engine: it
 picks the attention of each prefill only -- ``"pallas"`` runs the
@@ -30,7 +40,12 @@ from ..kernels.common import resolve_device
 from ..models.model import Model
 from ..runtime import trace
 
-__all__ = ["Request", "ServeConfig", "ServingEngine"]
+__all__ = ["GRAPH_FAMILIES", "Request", "ServeConfig", "ServingEngine"]
+
+#: Families whose decode step the engine runs as a CUDA graph on the card:
+#: the decoder-only ones it serves.  ``vlm`` and ``encdec`` decode against
+#: a cross-attention stack that the engine does not hold, and stay eager.
+GRAPH_FAMILIES = frozenset({"dense", "moe", "ssm", "hybrid"})
 
 
 @dataclass
@@ -74,6 +89,16 @@ class ServingEngine:
         self.queue: List[Request] = []
         self._queued_at = {}  # id(request) -> trace.stamp() at submit
         self._rng = np.random.default_rng(cfg.seed)
+        # the decode step as one CUDA graph, captured on the first step; it
+        # reads the tokens and positions from _tok and _idx, holds the
+        # params and cache it was captured with, and writes _logits
+        self._graphed = (self.device.type == "cuda"
+                         and model.cfg.family in GRAPH_FAMILIES)
+        self._graph = None
+        if self._graphed:
+            self._tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            self._idx = torch.zeros((B,), dtype=torch.int32, device=self.device)
+            self._logits = None
 
     # -- the two model calls (the reference jits these) ---------------------
     def _prefill(self, tokens: torch.Tensor):
@@ -83,6 +108,40 @@ class ServingEngine:
     def _decode(self, tok: torch.Tensor, idx: torch.Tensor):
         return self.model.decode_step(self.params, tok, idx, self.cache,
                                       rules=self.rules)
+
+    def _decode_slots(self):
+        """Decode every slot at its position: ``(logits (B, Vp) on the
+        device, how)``, ``how`` being ``"eager"``, ``"capture"`` (this
+        step ran eagerly and was captured) or ``"replay"``."""
+        if not self._graphed:
+            logits, self.cache = self._decode(self._to_device(self.last_token),
+                                              self._to_device(self.positions))
+            return logits, "eager"
+        self._tok.copy_(torch.from_numpy(self.last_token))
+        self._idx.copy_(torch.from_numpy(self.positions))
+        if self._graph is None:
+            return self._capture(), "capture"
+        self._graph.replay()
+        return self._logits, "replay"
+
+    def _capture(self) -> torch.Tensor:
+        """This step's decode run eagerly on a side stream (the capture's
+        warm-up: cuBLAS and the allocator set up for that stream), then the
+        same call captured there; returns the eager run's logits.  Capture
+        runs nothing, so the cache moves one step, as eagerly; a second
+        warm-up would move it twice."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                logits, _ = self._decode(self._tok, self._idx)
+            main.wait_stream(side)
+            with torch.cuda.graph(graph, stream=side):
+                self._logits, _ = self._decode(self._tok, self._idx)
+        self._graph = graph
+        return logits
 
     # -- request lifecycle ------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -132,10 +191,10 @@ class ServingEngine:
         active = [b for b in range(self.cfg.batch_slots) if self.slots[b] is not None]
         if not active:
             return 0
-        with trace.span("engine.decode", slots=len(active)):
-            logits, self.cache = self._decode(
-                self._to_device(self.last_token),
-                self._to_device(self.positions))
+        with trace.span("engine.decode", slots=len(active)) as sp:
+            logits, how = self._decode_slots()
+            if sp is not None:
+                sp.attrs["graph"] = how
         with trace.span("engine.logits"):
             logits = _host(logits)
         with trace.span("engine.pick"):

@@ -4,7 +4,8 @@ greedy tokens reproduced on the same seeded requests.
 The engine tests mirror ``tests/test_serving_runtime.py`` on the port (on
 the CPU).  The parity test serves reduced falcon-mamba through both
 packages' ``ServingEngine`` with the reference's params carried over by
-``convert.model_params``: the greedy tokens must be identical.
+``convert.model_params``: the greedy tokens must be identical, and on the
+CPU every decode step runs eagerly.
 """
 import dataclasses
 import json
@@ -24,6 +25,7 @@ from repro.serving import ServingEngine as RefEngine
 from repro_torch import convert
 from repro_torch.launch import serve
 from repro_torch.models import Model, ModelConfig
+from repro_torch.runtime import trace
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 
@@ -119,7 +121,13 @@ def test_reference_and_port_serve_identical_greedy_tokens():
     for r in port_reqs:
         port_eng.submit(r)
     ref_eng.run_until_done()
-    port_eng.run_until_done()
+    trace.reset()
+    with trace.enable():
+        port_eng.run_until_done()
+    decode = trace.spans("engine.decode")
+    trace.reset()
+    # on the CPU every decode step launches its layers eagerly
+    assert decode and {s.attrs["graph"] for s in decode} == {"eager"}
     assert all(r.done for r in port_reqs)
     for r, p in zip(ref_reqs, port_reqs):
         assert p.output == r.output, r.request_id
