@@ -5,7 +5,7 @@ at the launch's shape, whatever the kernel reads again; operations count
 one for each elementwise operation or transcendental call.  The bound of a
 launch is the larger of its bytes at the HBM rate and its operations at the
 float32 rate (NVIDIA H100 SXM data sheet, 700 W).  Frozen copies of the
-counts ``chip_smoke.py`` states for K1, K2 and K5.
+counts ``chip_smoke.py`` states for K1, K2, K4 and K5.
 """
 from __future__ import annotations
 
@@ -55,3 +55,29 @@ def k5_bwd(b: int, t: int, d: int, size: int, h0: bool = False):
     writes da and db; with h0, reads h0 and gh_T and writes dh0 (float32)."""
     n_bytes = 5 * b * t * d * size + (3 * b * d * 4 if h0 else 0)
     return n_bytes, 3 * b * t * d
+
+
+def keys_seen(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """Sum over query rows of the keys each row sees (the unmasked (query,
+    key) pairs of one head): row i, at position q_offset + i, sees keys
+    [max(0, pos - window + 1), min(Sk, pos + 1)), the bounds dropped without
+    a window or causality."""
+    seen = 0
+    for pos in range(q_offset, q_offset + sq):
+        lo = max(0, pos - window + 1) if window is not None else 0
+        hi = min(sk, pos + 1) if causal else sk
+        seen += max(hi - lo, 0)
+    return seen
+
+
+def k4(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, causal: bool,
+       window, q_offset: int, size: int):
+    """Flash attention (K4, ``flash_attention``) of one launch: (bytes,
+    operations).  Reads Q and K, V at Hkv heads and writes O, each once, in
+    the inputs' ``size`` bytes an element; 4 D operations a visible (query,
+    key) pair and query head (Q Kᵀ and P V, a multiply and an add each).
+    A bfloat16 launch's operations go at ``BF16_FLOPS_PER_S``, as PERF.md's
+    K4 bounds take them, a float32 one's at ``F32_OPS_PER_S``."""
+    n_bytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * size
+    n_ops = 4 * b * hq * d * keys_seen(sq, sk, causal, window, q_offset)
+    return n_bytes, n_ops

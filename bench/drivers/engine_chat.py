@@ -12,7 +12,10 @@ Set-up draws the weights on the card, runs one prefill at the longest
 prompt and the loop itself for ``warmup_steps`` engine steps (every slot
 busy, the clients out of step; a count of steps, so that the window opens
 at the same point of the seed's requests however fast the host is); then
-the window opens and runs the same loop for ``--seconds`` seconds.
+the window opens and runs the same loop for ``--seconds`` seconds.  A
+``window_steps`` parameter, which only the tests' CPU sizes set, closes it
+after that many engine steps instead, so that the requests it finishes do
+not depend on the host's speed.
 
 End to end: ``serve_tokens_per_s``, the output tokens produced in the
 window over the window.
@@ -118,7 +121,9 @@ def run(h) -> dict:
     h.open_window()
     before = produced()
     h.start_trace()
-    while h.elapsed() < h.seconds:
+    window_steps = p.get("window_steps")
+    while (h.elapsed() < h.seconds if window_steps is None
+           else log["steps"] < window_steps):
         step()
         if h.tracing and log["steps"] >= p["trace_steps"]:
             h.stop_trace()

@@ -94,7 +94,7 @@ def kernel_label(name: str) -> str:
 
 
 #: the program's kernel modules whose launch and shape counters are read
-KERNEL_MODULES = ("jasda_score", "wis_dp", "linear_scan")
+KERNEL_MODULES = ("jasda_score", "wis_dp", "linear_scan", "flash_attention")
 
 
 def kernel_counts() -> dict:

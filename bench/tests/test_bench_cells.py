@@ -38,6 +38,8 @@ def contract_errors(result: dict, cell: str, trace: int) -> list:
 
 
 def test_every_cell_has_a_small_size():
+    """Each cell has its file ``sizes/<cell>.json``, and no file is left
+    without a cell."""
     assert set(SMALL) == set(CELLS)
 
 
@@ -69,3 +71,6 @@ def test_chat_checks_only_the_window_requests():
     sent = {(tuple(r.prompt), tuple(r.output)) for r in window}
     _, rows, _ = h.reference
     assert rows and all((tuple(p), tuple(o)) in sent for p, o in rows)
+    # the window closes on a count of steps: the check is full on any host
+    assert h.counters["steps"] == h.params["window_steps"]
+    assert len(rows) == h.params["check_requests"]

@@ -104,6 +104,10 @@ def test_served_token_altered_is_caught(monkeypatch):
     monkeypatch.setattr(ServingEngine, "_pick", altered)
     result, h = run_small(CHAT, seed=34)
     assert not result["correct"], result["checks"]
+    # judged by its tokens: requests were checked, and their gap fails
+    checks = result["checks"]
+    assert checks["requests_unchecked"]["value"] == 0, checks
+    assert checks["logit_gap"]["value"] > checks["logit_gap"]["limit"], checks
 
 
 @pytest.mark.parametrize("cell", [STREAM, TRAIN, CHAT])
