@@ -1,8 +1,10 @@
 """Architecture registry: the configs the port serves + reduced variants.
 
 The port's counterpart of ``repro/configs/registry.py``.  ``ARCH_NAMES``
-lists the reference's ten configs, and every one has a module in the port
-(``PORTED``).  ``get`` / ``reduced`` / ``info`` of another name raise.
+lists the reference's ten configs, and every one has a module in the port;
+``PORT_ONLY`` lists the port's own configs, which the JAX package lacks
+(the dry run and the cost model cover ``ARCH_NAMES``).  ``PORTED`` is
+both.  ``get`` / ``reduced`` / ``info`` of another name raise.
 
 ``get`` returns the bare ``ModelConfig`` where the reference's returns
 ``(cfg, info)``; the ``ArchInfo`` (the optimizer the launcher trains with,
@@ -16,7 +18,8 @@ from typing import Mapping
 
 from ..models.config import ModelConfig
 
-__all__ = ["ArchInfo", "ARCH_NAMES", "PORTED", "get", "info", "reduced"]
+__all__ = ["ArchInfo", "ARCH_NAMES", "PORT_ONLY", "PORTED", "get", "info",
+           "reduced"]
 
 ARCH_NAMES = [
     "whisper_small",
@@ -66,14 +69,17 @@ class ArchInfo:
     notes: str = ""
 
 
-#: configs with a module in the port: all of the reference's
-PORTED = tuple(ARCH_NAMES)
+#: configs of the port alone
+PORT_ONLY = ["jamba2_mini"]
+
+#: configs with a module in the port: all of the reference's, and its own
+PORTED = tuple(ARCH_NAMES + PORT_ONLY)
 
 
 def _module(name: str):
     name = name.replace("-", "_").replace(".", "_")
-    if name not in ARCH_NAMES:
-        raise KeyError(f"unknown arch {name!r}; known: {', '.join(ARCH_NAMES)}")
+    if name not in PORTED:
+        raise KeyError(f"unknown arch {name!r}; known: {', '.join(PORTED)}")
     return importlib.import_module(f".{name}", __package__)
 
 

@@ -10,7 +10,9 @@ stacked on a leading axis (the port loops over it in Python):
   dense/moe : superblock = 1 block, n_super = n_layers
   ssm       : superblock = 1 mamba block
   hybrid    : superblock = pattern (e.g. rglru, rglru, attn), plus a tail
-              stack for the remainder layers
+              stack for the remainder layers; a pattern may also pair a
+              mamba mixer with a dense or MoE FFN (``mamba_mlp``,
+              ``mamba_moe``: jamba)
   vlm       : superblock = (cross_attn_every-1) self blocks + 1 cross block
   encdec    : separate encoder (bidirectional) and decoder (self+cross) stacks
 
@@ -27,7 +29,11 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "PORT_FIELDS"]
+
+#: fields of the port's own configs (jamba) that the JAX package's config
+#: lacks; at their defaults a config computes as the reference's does
+PORT_FIELDS = ("use_rope", "moe_routing", "held_experts", "mamba_norms")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -48,6 +54,7 @@ class ModelConfig:
 
     # -- attention flavour ---------------------------------------------------
     rope_theta: float = 10000.0
+    use_rope: bool = True  # False: no positional encoding (jamba)
     qk_norm: bool = False  # qwen3: RMSNorm on q,k per head
     qkv_bias: bool = False  # qwen1.5
     window: Optional[int] = None  # sliding-window for local-attn layers
@@ -60,12 +67,19 @@ class ModelConfig:
     d_expert: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # "capacity": GShard groups, top-k renormalised, overflow dropped;
+    # "dropless": every choice computed, the top-k probabilities as they are
+    moe_routing: str = "capacity"
+    # (first, count) of the experts this model holds under its router of
+    # n_experts outputs (expert parallelism; dropless only); None: all
+    held_experts: Optional[Tuple[int, int]] = None
 
     # -- SSM (mamba-1) ----------------------------------------------------------
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     dt_rank: int = 0  # 0 → ceil(d_model / 16)
+    mamba_norms: bool = False  # RMSNorm on dt, B and C after x_proj (jamba)
 
     # -- hybrid (recurrentgemma) --------------------------------------------------
     pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
@@ -111,6 +125,11 @@ class ModelConfig:
     def lru_dim(self) -> int:
         return self.lru_width or self.d_model
 
+    @property
+    def held(self) -> Tuple[int, int]:
+        """(first, count) of the experts held: all of them by default."""
+        return self.held_experts or (0, self.n_experts)
+
     # superblock decomposition -------------------------------------------------
     @property
     def superblock(self) -> Tuple[str, ...]:
@@ -138,6 +157,12 @@ class ModelConfig:
         """Remainder layers that do not fill a superblock (hybrid: 38 % 3)."""
         return self.n_layers % len(self.superblock)
 
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The block kind of every layer, in order (superblocks, then tail)."""
+        sb = self.superblock
+        return sb * self.n_super + sb[: self.n_tail]
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -153,19 +178,24 @@ class ModelConfig:
         n = V * D * (1 if self.tie_embeddings else 2)  # embed (+unembed)
         attn = D * hd * (H + 2 * Hkv) + H * hd * D
         mlp = (3 if self.gated_mlp else 2) * D * F
+        e_mlp = (3 if self.gated_mlp else 2) * D * self.d_expert
+        moe = self.held[1] * e_mlp + D * self.n_experts
+        Dm, N, R = self.d_inner, self.ssm_state, self.dt_rank_actual
+        mamba = D * 2 * Dm + Dm * self.ssm_conv + Dm * (R + 2 * N) \
+            + R * Dm + Dm * N + Dm + Dm * D
+        if self.mamba_norms:
+            mamba += R + 2 * N
         if self.family == "hybrid":
             Dr = self.lru_dim
             rglru = D * 2 * Dr + Dr * self.ssm_conv + 2 * Dr + Dr * D + Dr * Dr // 8
-            n_attn = self.superblock.count("attn") * self.n_super
-            n_rec = self.n_layers - n_attn
-            return n + n_attn * (attn + mlp) + n_rec * (rglru + mlp)
+            per_kind = {"attn": attn + mlp, "moe": attn + moe,
+                        "rglru": rglru + mlp, "mamba_mlp": mamba + mlp,
+                        "mamba_moe": mamba + moe}
+            return n + sum(per_kind[k] for k in self.layer_kinds)
         if self.family == "moe":
-            e_mlp = (3 if self.gated_mlp else 2) * D * self.d_expert
-            per_layer = attn + self.n_experts * e_mlp + D * self.n_experts
+            per_layer = attn + moe
         elif self.family == "ssm":
-            Dm, N, R = self.d_inner, self.ssm_state, self.dt_rank_actual
-            per_layer = D * 2 * Dm + Dm * self.ssm_conv + Dm * (R + 2 * N) \
-                + R * Dm + Dm * N + Dm + Dm * D
+            per_layer = mamba
         elif self.family in ("dense", "vlm", "encdec"):
             per_layer = attn + mlp
         else:
@@ -173,9 +203,12 @@ class ModelConfig:
         return n + (self.n_layers + self.n_encoder_layers) * per_layer
 
     def active_param_count(self) -> int:
-        """Active parameters per token (MoE: top-k of experts)."""
-        if self.family != "moe":
+        """Active parameters per token (MoE: top-k of experts; of held
+        experts, the share of the top k routed to them)."""
+        n_moe = sum(k in ("moe", "mamba_moe") for k in self.layer_kinds)
+        if not n_moe:
             return self.param_count()
         e_mlp = (3 if self.gated_mlp else 2) * self.d_model * self.d_expert
-        dense_part = self.param_count() - self.n_layers * self.n_experts * e_mlp
-        return dense_part + self.n_layers * self.top_k * e_mlp
+        held = self.held[1]
+        dense_part = self.param_count() - n_moe * held * e_mlp
+        return dense_part + n_moe * e_mlp * self.top_k * held // self.n_experts

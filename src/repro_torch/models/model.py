@@ -37,8 +37,17 @@ Attention caches:
     ``dynamic_update_slice`` clamps it.  Cross-attention blocks hold no
     cache: their K/V is the prefill's ``cross_stack``.
   * hybrid local-attn — RING cache of size ``window`` with per-slot
-    positions (stale slots overwritten; masking uses stored positions).
+    positions (stale slots overwritten; masking uses stored positions);
+    a hybrid without a window (jamba) keeps the linear cache.
   * mamba / rglru — O(1) recurrent state (conv tail + ssm/lru state).
+
+Block kinds: ``attn`` (attention + MLP), ``moe`` (attention + MoE),
+``mamba`` (the mixer alone), ``mamba_mlp`` / ``mamba_moe`` (the mixer, then
+an MLP or MoE FFN: jamba), ``rglru`` (RG-LRU + MLP), ``cross``.  Each MoE
+layer call outside a CUDA graph is a span ``model.moe`` (``layer``,
+``tokens``; ``rows``, the routed rows a dropless prefill computed).  A
+dropless MoE counts each expert's routed choices on the device
+(:meth:`Model.routed_choices`).
 """
 from __future__ import annotations
 
@@ -48,10 +57,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import (attention, constrain, layer_norm, mlp, rms_norm, rope,
                      softmax_cross_entropy)
-from .moe import moe_ffn
+from .moe import moe_dropless, moe_ffn
 from .params import PORTED_FAMILIES, init_params, param_specs
 from .rglru import rglru_decode_step, rglru_seq
 from .ssm import mamba_decode_step, mamba_seq
@@ -83,6 +93,14 @@ def _take(table, ids):
     return torch.where(inside[..., None], table[ids.clamp(0, n - 1)], torch.nan)
 
 
+def _device_key(device) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _norm(cfg, x, p, name):
     if cfg.family == "encdec":
         return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"], cfg.norm_eps)
@@ -103,8 +121,12 @@ class Model:
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; the port runs "
                              f"{', '.join(PORTED_FAMILIES)}")
+        if cfg.held_experts is not None and cfg.moe_routing != "dropless":
+            raise ValueError("a share of the experts is held only under "
+                             "dropless routing")
         self.cfg = cfg
         self.scan_impl = scan_impl
+        self._routed: Dict[torch.device, torch.Tensor] = {}
 
     def init(self, generator=0, device=None):
         """Random params on ``device`` (the card unless ``"cpu"`` is asked;
@@ -137,7 +159,7 @@ class Model:
         q = constrain(q, rules, "bshk")
         k = constrain(k, rules, "btkk")
         v = constrain(v, rules, "btkk")
-        if cfg.family != "encdec":  # whisper: position tables, no RoPE
+        if cfg.family != "encdec" and cfg.use_rope:  # whisper: position tables
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         b, s = k.shape[0], k.shape[1]
@@ -225,7 +247,8 @@ class Model:
     # one block of a given kind
     # =========================================================================
     def _apply_block(self, kind, p, x, positions, *, cache=None, index=None,
-                     cross_kv=None, rules=None, impl="auto", decode=False):
+                     cross_kv=None, rules=None, impl="auto", decode=False,
+                     layer=None):
         """Returns ``(x, new recurrent state or None, MoE aux loss or None)``."""
         cfg = self.cfg
         h = _norm(cfg, x, p, "ln1")
@@ -243,46 +266,84 @@ class Model:
             x = x + constrain(out, rules, "btd")
             if kind == "attn":
                 return self._mlp_res(p, x, rules), None, None
-            h2 = rms_norm(x, p["ln2_scale"], cfg.norm_eps)
-            out, aux = moe_ffn(h2, p["moe"], top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor,
-                               act=cfg.act, gated=cfg.gated_mlp, rules=rules)
-            return x + constrain(out, rules, "btd"), None, aux
-        if kind == "mamba":
-            seq, step = mamba_seq, mamba_decode_step
+            x, aux = self._moe_res(p, x, rules, layer, decode)
+            return x, None, aux
+        if kind in ("mamba", "mamba_mlp", "mamba_moe"):
+            seq, step, mixer = mamba_seq, mamba_decode_step, "mamba"
         elif kind == "rglru":
-            seq, step = rglru_seq, rglru_decode_step
+            seq, step, mixer = rglru_seq, rglru_decode_step, "rglru"
         else:
             raise ValueError(kind)
         new_state = None
         if decode:
-            out, new_state = step(h[:, 0], p[kind], cfg, cache, rules=rules)
+            out, new_state = step(h[:, 0], p[mixer], cfg, cache, rules=rules)
             out = out[:, None]
         elif cache is not None:  # prefill: also emit the decode state
-            out, new_state = seq(h, p[kind], cfg, rules=rules,
+            out, new_state = seq(h, p[mixer], cfg, rules=rules,
                                  scan_impl=self.scan_impl, return_cache=True)
         else:
-            out = seq(h, p[kind], cfg, rules=rules, scan_impl=self.scan_impl)
+            out = seq(h, p[mixer], cfg, rules=rules, scan_impl=self.scan_impl)
         x = x + constrain(out, rules, "btd")
-        if kind == "rglru":
+        if kind == "mamba_moe":
+            x, aux = self._moe_res(p, x, rules, layer, decode)
+            return x, new_state, aux
+        if kind in ("rglru", "mamba_mlp"):
             x = self._mlp_res(p, x, rules)
         return x, new_state, None
+
+    def _moe_res(self, p, x, rules, layer, decode):
+        """``x`` plus its MoE FFN: ``(x, aux loss or None)``; ``decode``
+        runs the dropless layer in its static form (a CUDA graph's)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln2_scale"], cfg.norm_eps)
+        with trace.span("model.moe", layer=layer,
+                        tokens=h.shape[0] * h.shape[1]) as sp:
+            if cfg.moe_routing == "dropless":
+                out, rows = moe_dropless(
+                    h, p["moe"], top_k=cfg.top_k, held=cfg.held,
+                    static=decode, counts=self._routed_counter(x.device),
+                    act=cfg.act, gated=cfg.gated_mlp)
+                aux = None
+                if sp is not None and rows is not None:
+                    sp.attrs["rows"] = rows
+            else:
+                out, aux = moe_ffn(h, p["moe"], top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   act=cfg.act, gated=cfg.gated_mlp,
+                                   rules=rules)
+        return x + constrain(out, rules, "btd"), aux
+
+    def _routed_counter(self, device) -> torch.Tensor:
+        """The (n_experts,) int64 count of routed choices on ``device``."""
+        device = _device_key(device)
+        if device not in self._routed:
+            self._routed[device] = torch.zeros(self.cfg.n_experts,
+                                               dtype=torch.int64, device=device)
+        return self._routed[device]
+
+    def routed_choices(self, device=None) -> Optional[torch.Tensor]:
+        """Each expert's routed choices (top-k picks, held experts or not)
+        that the dropless MoE layers made on ``device`` (the card unless
+        ``"cpu"`` is asked for) since the model was built: the live (E,)
+        int64 device tensor, or None where no such layer has run there."""
+        return self._routed.get(_device_key(resolve_device(device)))
 
     # =========================================================================
     # superblock stack (Python loop over depth)
     # =========================================================================
     def _run_layers(self, stack_params, x, positions, *, names, n_layers,
                     cache=None, index=None, cross_stack=None, rules=None,
-                    impl="auto", decode=False, remat=False):
+                    impl="auto", decode=False, remat=False, first_layer=0):
         """Returns ``(x, the MoE blocks' aux losses summed)``; the aux is None
         where no block made one, and with a cache (serving drops it).
         Superblock ``layer``'s cross block reads layer ``layer`` of
-        ``cross_stack``."""
+        ``cross_stack``.  The stack's first block is the model's layer
+        ``first_layer``."""
         remat = remat and cache is None and torch.is_grad_enabled()
         aux = None
         for layer in range(n_layers):
             ckv = None if cross_stack is None else _index(cross_stack, layer)
-            for name in names:
+            for j, name in enumerate(names):
                 kind = name.split("_", 1)[1]
                 p = _index(stack_params[name], layer)
                 c_kv = ckv if kind == "cross" else None
@@ -295,7 +356,8 @@ class Model:
                          if cache is not None and name in cache else None)
                     x, state, aux_l = self._apply_block(
                         kind, p, x, positions, cache=c, index=index,
-                        cross_kv=c_kv, rules=rules, impl=impl, decode=decode)
+                        cross_kv=c_kv, rules=rules, impl=impl, decode=decode,
+                        layer=first_layer + layer * len(names) + j)
                     if state is not None:
                         _write(c, state)
                 if aux_l is not None and cache is None:
@@ -331,7 +393,8 @@ class Model:
             x, _ = self._run_layers(
                 params["tail"], x, positions, names=list(params["tail"]),
                 n_layers=1, cache=None if cache is None else cache["tail"],
-                index=index, rules=rules, impl=impl, decode=decode)
+                index=index, rules=rules, impl=impl, decode=decode,
+                first_layer=cfg.n_super * len(cfg.superblock))
         return self._final_norm(params, x), aux
 
     def _run_encdec_decoder(self, params, x, positions, cross_stack, *,
@@ -508,16 +571,18 @@ class Model:
         def zeros(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=dev)
 
+        ring = cfg.family == "hybrid" and cfg.window is not None
+
         def sub(kind, n):
             if kind in ("attn", "moe"):
-                t = min(cfg.window, max_seq) if cfg.family == "hybrid" else max_seq
+                t = min(cfg.window, max_seq) if ring else max_seq
                 c = {"k": zeros((n, batch, t, cfg.n_kv_heads, cfg.hd)),
                      "v": zeros((n, batch, t, cfg.n_kv_heads, cfg.hd))}
-                if cfg.family == "hybrid":
+                if ring:
                     c["slot_pos"] = torch.full((n, batch, t), -(10**9),
                                                dtype=torch.int32, device=dev)
                 return c
-            if kind == "mamba":
+            if kind in ("mamba", "mamba_mlp", "mamba_moe"):
                 return {"conv": zeros((n, batch, cfg.ssm_conv - 1, cfg.d_inner)),
                         "ssm": zeros((n, batch, cfg.d_inner, cfg.ssm_state),
                                      torch.float32)}

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN: GShard-style grouped capacity dispatch.
+"""Mixture-of-Experts FFN: GShard-style grouped capacity dispatch, and a
+dropless routing over a model's share of the experts.
 
 The port's counterpart of ``repro/models/moe.py``: top-k routing with a
 capacity bound per group of ``group_size`` tokens (dropped tokens pass
@@ -22,16 +23,36 @@ expert, slot) entry of those tensors has at most one nonzero term: the
 port scatters the kept tokens into their (expert, slot) rows and gathers
 the experts' outputs back, with the same values and no (G, g, k, E, C)
 transient (85 M entries at olmoe's 2048-token prefill).
+
+``moe_dropless`` is jamba's routing: the float32 softmax's top k taken as
+they are (not renormalised), every choice computed, no capacity.  The layer
+may hold a share of the experts, ``held = (first, count)`` of the router's
+outputs, as a card of an expert-parallel deployment holds its own: it
+routes over all of them and adds the part of the result its experts give
+(the exchange with the cards that hold the rest is not run).  A prefill
+computes only the rows routed to held experts, their counts read on the
+host to split them; a decode step has static shapes and reads nothing on
+the host: every held expert runs on every token, weighted by the token's
+gate for it (0 where it did not choose it), so the step can be one CUDA
+graph.  ``counts`` (E,) int64, where given, gains each expert's choices on
+the device, held or not.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .layers import _act, constrain
 
-__all__ = ["Routing", "route", "moe_ffn"]
+__all__ = ["Routing", "route", "moe_ffn", "moe_dropless"]
+
+
+def _top(probs: torch.Tensor, k: int):
+    """The ``k`` largest of ``probs`` (last dim) and their experts, best
+    first, ties toward the lower index (``jax.lax.top_k``'s order)."""
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
 
 
 class Routing(NamedTuple):
@@ -52,8 +73,7 @@ def route(xt: torch.Tensor, router: torch.Tensor, *, top_k: int,
     E = router.shape[-1]
     logits = torch.einsum("gsd,de->gse", xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)  # (G, g, E)
-    order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = order.values[..., :top_k], order.indices[..., :top_k]
+    gate, expert = _top(probs, top_k)
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
 
     # aux loss on the pre-capacity distribution (Switch/GShard)
@@ -141,3 +161,67 @@ def moe_ffn(
     w = r.gate.to(torch.bfloat16).to(rows.dtype)
     out = torch.bmm(w.reshape(-1, 1, top_k), rows.reshape(-1, top_k, D))
     return out.reshape(B, S, D).to(x.dtype), r.aux
+
+
+def _expert(x, p, e: int, act: str, gated: bool):
+    """Expert ``e``'s FFN over the rows ``x`` (n, D)."""
+    if gated:
+        h = _act(x @ p["w_gate"][e], act) * (x @ p["w_up"][e])
+    else:
+        h = _act(x @ p["w_up"][e], act)
+    return h @ p["w_down"][e]
+
+
+def moe_dropless(
+    x: torch.Tensor,  # (B, S, D)
+    p,  # router (D, E); w_gate/w_up (H, D, Fe), w_down (H, Fe, D): held
+    *,
+    top_k: int,
+    held: Tuple[int, int],
+    static: bool = False,
+    counts: Optional[torch.Tensor] = None,
+    act: str = "silu",
+    gated: bool = True,
+) -> Tuple[torch.Tensor, Optional[int]]:
+    """Returns ``(out (B, S, D) in x's dtype, rows)``: the held experts'
+    part of the layer, and the routed rows they computed (None in the
+    ``static`` form, which runs every held expert on every token)."""
+    B, S, D = x.shape
+    first, n_held = held
+    xt = x.reshape(B * S, D)
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    gate, expert = _top(probs, top_k)  # (T, k)
+    if counts is not None:
+        counts.index_add_(0, expert.reshape(-1),
+                          torch.ones_like(expert.reshape(-1)))
+    local = expert - first
+    mine = (local >= 0) & (local < n_held)
+    if static:
+        w = torch.zeros((B * S, n_held), dtype=torch.float32, device=x.device)
+        w.scatter_add_(1, local.clamp(0, n_held - 1), torch.where(mine, gate, 0.0))
+        ein = xt.expand(n_held, -1, -1)
+        if gated:
+            h = _act(torch.bmm(ein, p["w_gate"]), act) * torch.bmm(ein, p["w_up"])
+        else:
+            h = _act(torch.bmm(ein, p["w_up"]), act)
+        y = torch.bmm(h, p["w_down"])  # (H, T, D)
+        out = torch.einsum("th,htd->td", w, y.float())
+        return out.reshape(B, S, D).to(x.dtype), None
+    # the choices grouped by held expert, the others last: the counts (one
+    # read on the host) split the rows
+    key = torch.where(mine, local, n_held).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    sizes = torch.bincount(key, minlength=n_held + 1).tolist()[:n_held]
+    sel = order[:sum(sizes)]
+    tok = sel // top_k
+    rows = xt[tok]
+    out = torch.zeros((B * S, D), dtype=torch.float32, device=x.device)
+    ys, at = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            ys.append(_expert(rows[at:at + n], p, e, act, gated))
+        at += n
+    if ys:
+        y = torch.cat(ys).float() * gate.reshape(-1)[sel][:, None]
+        out.index_add_(0, tok, y)
+    return out.reshape(B, S, D).to(x.dtype), sum(sizes)

@@ -116,7 +116,8 @@ def _norm_tpl(cfg: ModelConfig, L: int, name: str) -> Dict[str, P]:
 
 
 def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
-    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    """The router over all ``n_experts``; the weights of the held experts."""
+    D, E, Fe = cfg.d_model, cfg.held[1], cfg.d_expert
     if cfg.moe_shard == "expert":
         up_spec = (None, "model", "fsdp", None)
         down_spec = (None, "model", None, "fsdp")
@@ -124,7 +125,7 @@ def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
         up_spec = (None, None, "fsdp", "model")
         down_spec = (None, None, "model", "fsdp")
     return {
-        "router": P((L, D, E), (None, "fsdp", None), fan_in=D,
+        "router": P((L, D, cfg.n_experts), (None, "fsdp", None), fan_in=D,
                     dtype=torch.float32),
         "w_gate": P((L, E, D, Fe), up_spec, fan_in=D),
         "w_up": P((L, E, D, Fe), up_spec, fan_in=D),
@@ -135,7 +136,7 @@ def _moe_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
 def _mamba_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
     D, Dm, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
                       cfg.dt_rank_actual)
-    return {
+    t = {
         "in_proj": P((L, D, 2, Dm), (None, "fsdp", None, "model"), fan_in=D),
         "conv_w": P((L, K, Dm), (None, None, "model"), fan_in=K),
         "conv_b": P((L, Dm), (None, "model"), init="zeros"),
@@ -148,6 +149,10 @@ def _mamba_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
         "d_skip": P((L, Dm), (None, "model"), init="ones", dtype=torch.float32),
         "out_proj": P((L, Dm, D), (None, "model", "fsdp"), fan_in=Dm),
     }
+    if cfg.mamba_norms:  # RMSNorm scales of dt, B and C (``1 + scale``)
+        for name, n in (("dt_norm", R), ("b_norm", N), ("c_norm", N)):
+            t[name] = P((L, n), (None, None), init="zeros", dtype=torch.float32)
+    return t
 
 
 def _rglru_tpl(cfg: ModelConfig, L: int) -> Dict[str, P]:
@@ -181,6 +186,16 @@ def _block_tpl(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
         }
     if kind == "mamba":
         return {**_norm_tpl(cfg, L, "ln1"), "mamba": _mamba_tpl(cfg, L)}
+    if kind == "mamba_mlp":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "mamba": _mamba_tpl(cfg, L),
+            **_norm_tpl(cfg, L, "ln2"), "mlp": _mlp_tpl(cfg, L),
+        }
+    if kind == "mamba_moe":
+        return {
+            **_norm_tpl(cfg, L, "ln1"), "mamba": _mamba_tpl(cfg, L),
+            **_norm_tpl(cfg, L, "ln2"), "moe": _moe_tpl(cfg, L),
+        }
     if kind == "rglru":
         return {
             **_norm_tpl(cfg, L, "ln1"), "rglru": _rglru_tpl(cfg, L),

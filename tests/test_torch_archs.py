@@ -23,9 +23,10 @@ from repro.configs import get as ref_get
 from repro.configs import reduced as ref_reduced
 from repro.models import Model as RefModel
 from repro_torch import convert
-from repro_torch.configs import PORTED, get, info, reduced
+from repro_torch.configs import ARCH_NAMES, PORTED, get, info, reduced
 from repro_torch.launch import serve, train
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 
 ATOL = 3e-4
 DENSE = ("qwen1_5_4b", "qwen3_14b", "starcoder2_15b", "llama3_405b")
@@ -37,7 +38,8 @@ B, S, PROMPT = 2, 24, 16
 
 def port_config(cfg) -> ModelConfig:
     """The reference config as the port's: its fields, torch's dtype."""
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
     return ModelConfig(**kw)
 
@@ -114,6 +116,22 @@ def test_registry_matches_reference(arch):
     for cfg, rc in ((get(arch), ref_cfg), (reduced(arch), ref_reduced(arch))):
         assert cfg.param_count() == rc.param_count()
         assert cfg.active_param_count() == rc.active_param_count()
+
+
+def test_port_fields_are_the_ones_the_reference_lacks():
+    """The fields of the port's own configs are exactly those the JAX
+    package's config lacks, and every reference config leaves them at
+    their defaults."""
+    from repro.models import ModelConfig as RefConfig
+
+    ref = {f.name for f in dataclasses.fields(RefConfig)}
+    port = {f.name for f in dataclasses.fields(ModelConfig)}
+    assert port - ref == set(PORT_FIELDS)
+    default = ModelConfig(name="d", family="dense", n_layers=1, d_model=8,
+                          n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
+    for arch in ARCH_NAMES:
+        for cfg in (get(arch), reduced(arch)):
+            assert all(getattr(cfg, k) == getattr(default, k) for k in PORT_FIELDS)
 
 
 def test_full_width_param_counts():

@@ -14,19 +14,23 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced
-from repro_torch.models import Model
+from repro_torch.models import Model, ssm
 from repro_torch.models.params import PORTED_FAMILIES
 from repro_torch.runtime import trace
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from repro_torch.serving.engine import GRAPH_FAMILIES
 
 #: one served arch of each family the engine captures, at the dtype it is
-#: served in where the reduced config allows (bf16 mamba, bf16 linear cache)
+#: served in where the reduced config allows (bf16 mamba, bf16 linear cache),
+#: and jamba's hybrid (mamba, RoPE-free attention on a linear cache, the
+#: dropless MoE's static decode)
 ARCHS = [("falcon_mamba_7b", torch.bfloat16), ("qwen1_5_4b", torch.bfloat16),
-         ("olmoe_1b_7b", torch.float32), ("recurrentgemma_9b", torch.float32)]
+         ("olmoe_1b_7b", torch.float32), ("recurrentgemma_9b", torch.float32),
+         ("jamba2_mini", torch.bfloat16)]
 #: (prompt length, new tokens): 3 slots at different depths; the second
 #: request ends early and the fourth and fifth are prefilled into freed
-#: slots while the graph is live; past the hybrid's 16-token window
+#: slots while the graph is live; past the hybrid's 16-token window and
+#: jamba's mixer chunk, cut to 16 tokens here (``mixer_chunk``)
 SIZES = [(9, 24), (23, 5), (4, 30), (17, 12), (31, 14)]
 SLOTS, MAX_SEQ = 3, 64
 
@@ -36,6 +40,26 @@ def fresh():
     trace.reset()
     yield
     trace.reset()
+
+
+@pytest.fixture(autouse=True)
+def mixer_chunk(request, monkeypatch):
+    """jamba's prompts run the chunked prefill: its mixer's chunks of 16
+    tokens (2048 at the served size)."""
+    spec = getattr(request.node, "callspec", None)
+    if spec is not None and spec.params.get("arch") == "jamba2_mini":
+        monkeypatch.setattr(ssm, "CHUNK", 16)
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Two of the host's threads: the suite runs on several workers at
+    once, and a reduced model's small ops lose more to idle pool threads
+    than they gain."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture

@@ -31,13 +31,15 @@ from repro.serving import ServingEngine as RefEngine
 from repro_torch import convert
 from repro_torch.launch import serve
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 ATOL = 3e-4
 
 
 def port_config(cfg: RefConfig) -> ModelConfig:
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
     return ModelConfig(**kw)
 

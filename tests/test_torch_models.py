@@ -24,6 +24,7 @@ from repro.models.ssm import mamba_seq as ref_mamba_seq
 from repro_torch import convert
 from repro_torch.configs import get, reduced
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.models.layers import attention
 from repro_torch.models.rglru import rglru_seq
 from repro_torch.models.ssm import mamba_seq
@@ -33,7 +34,8 @@ ATOL = 3e-4
 
 def port_config(cfg: RefConfig) -> ModelConfig:
     """The reference config as the port's: its fields, torch's dtype."""
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
     return ModelConfig(**kw)
 

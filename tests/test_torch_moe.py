@@ -23,6 +23,7 @@ from repro.models.moe import moe_ffn as ref_moe_ffn
 from repro_torch import convert
 from repro_torch.configs import reduced
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.models.moe import moe_ffn, route
 from repro_torch.training.trainer import _grad_fn
 
@@ -32,7 +33,8 @@ ARCHS = ("olmoe_1b_7b", "granite_moe_3b_a800m")
 
 def port_config(cfg) -> ModelConfig:
     """The reference config as the port's: its fields, torch's dtype."""
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
     return ModelConfig(**kw)
 

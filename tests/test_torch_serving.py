@@ -25,6 +25,7 @@ from repro.serving import ServingEngine as RefEngine
 from repro_torch import convert
 from repro_torch.launch import serve
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.runtime import trace
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -107,7 +108,8 @@ def test_reference_and_port_serve_identical_greedy_tokens():
     rc = ref_reduced("falcon_mamba_7b")
     rm = RefModel(rc)
     rp = rm.init(jax.random.PRNGKey(0))
-    kw = {f.name: getattr(rc, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(rc, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     pm = Model(ModelConfig(**{**kw, "dtype": torch.float32}))
     pp = convert.model_params(rp, "cpu")
 

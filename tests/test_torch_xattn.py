@@ -40,6 +40,7 @@ from repro_torch import convert
 from repro_torch.configs import reduced
 from repro_torch.launch import serve, train
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.models import layers as port_layers
 from repro_torch.models import model as port_model
 from repro_torch.models import params as port_params_mod
@@ -52,7 +53,8 @@ B, S, PROMPT = 2, 20, 16
 
 def port_config(cfg: RefConfig) -> ModelConfig:
     """The reference config as the port's: its fields, torch's dtype."""
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+          if f.name not in PORT_FIELDS}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
     return ModelConfig(**kw)
 
