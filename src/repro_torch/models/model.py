@@ -22,9 +22,12 @@ guarded spec and moves nothing, so results do not depend on ``rules``.
 
 Params keep the reference's stacked layout: each superblock leaf has a
 leading layer axis, and depth is a Python loop over it (the reference's
-``lax.scan``), so conversion stays one to one.  Caches are stacked the
-same way.  With ``remat`` (the reference's ``jax.checkpoint`` with
-``nothing_saveable`` around each superblock) each block of the stack runs
+``lax.scan``), so conversion stays one to one.  Each stacked leaf is
+split into its layers once a forward (``_layers``), so where a gradient
+is recorded the backward gathers its layers' gradients with one stack,
+as the scan's does.  Caches are stacked the same way.  With ``remat``
+(the reference's ``jax.checkpoint`` with ``nothing_saveable`` around
+each superblock) each block of the stack runs
 under ``torch.utils.checkpoint``: its activations are recomputed in the
 backward and only its input is kept.  Where the reference returns a new
 cache, the port writes the new state into the cache it was given, in
@@ -74,6 +77,35 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+class _Unbind(torch.autograd.Function):
+    """``torch.unbind(stack, 0)`` whose backward stacks the layers'
+    gradients into one contiguous tensor: the layout (and so the values of
+    any sum over it) that adding per-layer gradients gives, where
+    ``unbind``'s own backward may take a layer gradient's layout."""
+
+    @staticmethod
+    def forward(ctx, stack):
+        ctx.shape = stack.shape
+        return stack.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.stack(grads, out=grads[0].new_empty(ctx.shape))
+
+
+def _layers(tree, n: int):
+    """The first ``n`` layers of a stacked param or activation tree, a list
+    of per-layer trees of views, each leaf split once (:class:`_Unbind`).
+    Where the leaf records a gradient, the backward stacks the layers'
+    gradients into one, where a view per layer would zero-fill and add one
+    stack-sized gradient per layer; elsewhere no node is recorded and the
+    views are those that indexing gives."""
+    if isinstance(tree, dict):
+        subs = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: s[i] for k, s in subs.items()} for i in range(n)]
+    return _Unbind.apply(tree)[:n]
 
 
 def _write(dst: Dict, src: Dict) -> None:
@@ -341,11 +373,15 @@ class Model:
         ``first_layer``."""
         remat = remat and cache is None and torch.is_grad_enabled()
         aux = None
+        layers = {name: _layers(stack_params[name], n_layers)
+                  for name in names}
+        cross = (None if cross_stack is None
+                 else _layers(cross_stack, n_layers))
         for layer in range(n_layers):
-            ckv = None if cross_stack is None else _index(cross_stack, layer)
+            ckv = None if cross is None else cross[layer]
             for j, name in enumerate(names):
                 kind = name.split("_", 1)[1]
-                p = _index(stack_params[name], layer)
+                p = layers[name][layer]
                 c_kv = ckv if kind == "cross" else None
                 if remat:
                     x, aux_l = checkpoint(self._block_out, kind, p, x,
@@ -404,11 +440,12 @@ class Model:
         ``cache`` in place), cross attention over layer l of
         ``cross_stack``, then the MLP."""
         remat = remat and cache is None and torch.is_grad_enabled()
-        blocks, cross = params["blocks"]["b0_attn"], params["cross"]
-        for layer in range(self.cfg.n_layers):
-            p_self = _index(blocks, layer)
-            p_cross = _index(cross, layer)
-            ckv = _index(cross_stack, layer)
+        n = self.cfg.n_layers
+        blocks = _layers(params["blocks"]["b0_attn"], n)
+        cross = _layers(params["cross"], n)
+        cross_kv = _layers(cross_stack, n)
+        for layer in range(n):
+            p_self, p_cross, ckv = blocks[layer], cross[layer], cross_kv[layer]
             if remat:
                 x = checkpoint(self._decoder_layer, p_self, p_cross, ckv, x,
                                positions, None, None, rules, impl,
@@ -470,8 +507,7 @@ class Model:
         x = frames.to(cfg.dtype) + enc["pos_embed"][None, :t].to(cfg.dtype)
         pos = torch.arange(t, device=x.device).expand(b, t)
         remat = remat and torch.is_grad_enabled()
-        for layer in range(cfg.n_encoder_layers):
-            p = _index(enc["blocks"], layer)
+        for p in _layers(enc["blocks"], cfg.n_encoder_layers):
             if remat:
                 x = checkpoint(self._encoder_layer, p, x, pos, rules, impl,
                                use_reentrant=False)
