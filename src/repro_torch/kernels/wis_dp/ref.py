@@ -26,8 +26,8 @@ backtrack by pointer doubling with the bounded walk kept for rows whose
 predecessors climb.  ``wis_dp_stream_reference`` models the single-window
 kernel K3 (the section of csrc/wis_batch.cu after K2): its lanes streamed
 through a ring of stages, dp split across the blocks of a cluster, the
-chain handed on at each block boundary.  Only tests and ``chip_smoke.py``
-call them.
+chain handed on at each block boundary.  Only tests call them (the card
+tests in ``tests/test_torch_card_kernels.py`` among them).
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ plus ``--device`` (``cuda`` unless ``cpu`` is asked for):
     python -m repro_torch.launch.train --arch falcon_mamba_7b --reduced
 
 :func:`train` builds and runs one training job from a ``ModelConfig``;
-``main`` calls it with the flags' config, and so does ``chip_smoke.py``
-at full width.  The job registers with a ``JasdaExecutor`` on one lane,
+``main`` calls it with the flags' config, and the tests call it at
+reduced scale.  The job registers with a ``JasdaExecutor`` on one lane,
 its steps are atomized into chunks that bid into announced windows, and
 each committed chunk runs real train steps.  A step is a function of its
 index (the batch is ``SyntheticTokens.batch(step)``), so the executor's

@@ -6,8 +6,7 @@ same engine gives when it launches every step eagerly, bit for bit, over
 a run whose slots sit at different depths and are re-prefilled while the
 graph is live.  Off the card, and in the families outside
 ``GRAPH_FAMILIES``, the step stays eager.  The card tests skip without a
-CUDA card: ``python -m pytest -m card tests/test_torch_decode_graph.py``
-runs them on one.
+CUDA card (``tests/torch_card.py``).
 """
 import numpy as np
 import pytest
@@ -19,6 +18,7 @@ from repro_torch.models.params import PORTED_FAMILIES
 from repro_torch.runtime import trace
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from repro_torch.serving.engine import GRAPH_FAMILIES
+from torch_card import card  # noqa: F401  (the fixture)
 
 #: one served arch of each family the engine captures, at the dtype it is
 #: served in where the reduced config allows (bf16 mamba, bf16 linear cache),
@@ -60,13 +60,6 @@ def few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the graph is captured on the card")
-    return torch.device("cuda")
 
 
 def _eager(engine):

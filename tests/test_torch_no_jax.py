@@ -10,9 +10,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / f"{name}_torch.py"
-    for name in ("quickstart", "cluster_study", "serve_batch", "train_100m")]
+    for name in ("quickstart", "cluster_study", "serve_batch", "train_100m")] + [
+    ROOT / "tests" / f"test_torch_card_{name}.py"
+    for name in ("kernels", "auction", "models")]
 
 
 def _imported_modules(path: Path):

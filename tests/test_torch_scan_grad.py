@@ -3,10 +3,11 @@
 The port's scan runs through one ``torch.autograd.Function``; on the CPU
 its forward and backward are the plain loops of ``kernels/linear_scan/
 ref.py`` (the CUDA backward is held bit-equal to that loop on the card by
-``chip_smoke.py``).  Seeded numpy inputs and cotangents go through
-``jax.vjp`` of the reference's ``linear_scan_associative`` and through the
-port's backward; tolerance 1e-4, the reference suite's scan tolerance
-(``tests/test_kernels.py``): the associative scan sums in another order.
+``tests/test_torch_card_kernels.py``).  Seeded numpy inputs and cotangents
+go through ``jax.vjp`` of the reference's ``linear_scan_associative`` and
+through the port's backward; tolerance 1e-4, the reference suite's scan
+tolerance (``tests/test_kernels.py``): the associative scan sums in another
+order.
 """
 import jax
 import jax.numpy as jnp
