@@ -12,6 +12,8 @@ Kernels:
   jasda_score     — paper §4.2: batched variant scoring + FMP safety
   wis_dp          — paper §4.4: weighted-interval-scheduling DP, batched
                     settle and single window
+  adamw           — the train step's clip norm and AdamW update (no TPU
+                    kernel: the reference's optimizer is plain jnp)
 """
 from .flash_attention.ops import flash_attention  # noqa: F401
 from .linear_scan.ops import linear_scan  # noqa: F401

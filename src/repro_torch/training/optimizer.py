@@ -12,45 +12,51 @@ moment into row and column statistics and keeps no momentum.  Each
 update runs the reference's operations in its order, in float32, and
 returns the updates in each param's dtype.
 
+AdamW also has ``step(grads, state, params, step, scale=None)``: update
+and apply at once, in place, returning ``(params, state, fused)``.  On a
+CUDA leaf it launches ``adamw_update_kernel`` (``kernels/adamw``), which
+reads each operand once and builds no updates tree; on any other leaf it
+runs ``update`` then ``apply_updates``' arithmetic.  ``fused`` counts the
+elements the kernel updated.  :func:`global_norm` and
+:func:`norm_and_clip_factor` take ``grad_sumsq_kernel`` for CUDA leaves
+the same way.  Adafactor has no ``step`` (None).
+
 Memory.  The reference chains its leaves through
 ``jax.lax.optimization_barrier`` so that one leaf's float32 temporaries
-are alive at a time.  Here a leaf is a whole layer stack -- falcon-mamba's
-``in_proj`` at 32 layers holds 2.15 G elements, 8.6 GB a float32 copy --
-so AdamW, ``global_norm`` and ``apply_updates`` work in pieces of at most
-``CHUNK`` elements along the leading (layer) axis, and state and params
-are updated in place: ``update`` writes m and v where they are and
-returns the same state, and ``apply_updates`` writes the params where
-they are and returns them.  Adafactor's whole-leaf means keep one leaf's
-float32 temporaries alive at a time, as the reference does.
+are alive at a time.  Here a leaf is a whole layer stack, so the plain
+versions work in pieces along the leading (layer) axis
+(``kernels/adamw/ref.py::CHUNK``), and state and params are updated in
+place: ``update`` writes m and v where they are and returns the same
+state, and ``apply_updates`` writes the params where they are and returns
+them.  Adafactor's whole-leaf means keep one leaf's float32 temporaries
+alive at a time, as the reference does.
 
 ``update`` also takes ``scale``, the clip factor of
 :func:`clip_by_global_norm`: ``g * scale`` is then formed piece by piece,
 in float32 as the reference's clipped gradient is, instead of as a whole
 float32 copy of the gradient tree.
-
-Scalars (the rate, bias corrections, the clip factor) are 0-dim float32
-tensors on the params' device: a division by one is a true division on
-the card too, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..checkpoint.store import tree_flatten
+from ..kernels.adamw import ops as adamw_ops
+from ..kernels.adamw.ref import (adamw_update_reference, apply_reference,
+                                 clip_factor_reference, grad_f32, scalar)
 
 __all__ = ["adamw", "adafactor", "apply_updates", "global_norm",
-           "clip_by_global_norm", "Optimizer", "CHUNK"]
-
-#: most elements of one leaf a float32 temporary holds at a time
-CHUNK = 1 << 26
+           "clip_by_global_norm", "norm_and_clip_factor", "Optimizer"]
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable  # (grads, state, params, step, scale=None) -> (updates, state)
+    #: (grads, state, params, step, scale=None) -> (params, state, fused), or None
+    step: Optional[Callable] = None
 
 
 def _map(fn, tree, *rest):
@@ -60,64 +66,35 @@ def _map(fn, tree, *rest):
     return rebuild([fn(*xs) for xs in zip(leaves, *others)])
 
 
-def _pieces(*tensors) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """Matching views of same-shaped tensors cut along the leading axis into
-    pieces of at most ``CHUNK`` elements (one row at least)."""
-    first = tensors[0]
-    if first.dim() == 0:
-        yield tensors
-        return
-    rows = max(1, CHUNK // max(1, first[0].numel()))
-    for i in range(0, first.shape[0], rows):
-        yield tuple(t[i:i + rows] for t in tensors)
-
-
-def _scalar(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
-
-
-def _grad_f32(g: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """The gradient as the reference's update sees it: float32, clipped."""
-    g = g.float()
-    return g if scale is None else g * scale
-
-
 @torch.no_grad()
 def apply_updates(params, updates):
     """p ← (p in f32 + u in f32) in p's dtype, in place; returns ``params``."""
-    def one(p, u):
-        for pp, uu in _pieces(p, u):
-            pp.copy_((pp.float() + uu.float()).to(p.dtype))
-        return p
-    return _map(one, params, updates)
+    return _map(apply_reference, params, updates)
+
+
+@torch.no_grad()
+def norm_and_clip_factor(tree, max_norm: float):
+    """(global norm, min(1, max_norm / max(norm, 1e-9))), 0-dim float32;
+    on CUDA leaves both come from the card's two norm passes."""
+    return adamw_ops.grad_norm(tree_flatten(tree)[0], max_norm)
 
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    total = None
-    for x in tree_flatten(tree)[0]:
-        for (piece,) in _pieces(x):
-            f = piece.float()
-            part = torch.sum(f * f)
-            total = part if total is None else total + part
-    if total is None:
-        return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(total)
+    return adamw_ops.grad_norm(tree_flatten(tree)[0])[0]
 
 
 def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """min(1, max_norm / max(norm, 1e-9)) as a float32 0-dim tensor."""
-    return torch.clamp(_scalar(max_norm, norm) / torch.clamp(norm, min=1e-9),
-                       max=1.0)
+    return clip_factor_reference(norm, max_norm)
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """(grads · factor, norm); as in the reference, a bfloat16 gradient
     times the float32 factor is float32."""
-    norm = global_norm(grads)
-    scale = clip_factor(norm, max_norm)
-    return _map(lambda g: _grad_f32(g, scale), grads), norm
+    norm, scale = norm_and_clip_factor(grads, max_norm)
+    return _map(lambda g: grad_f32(g, scale), grads), norm
 
 
 def _decay_mask(p) -> float:
@@ -136,29 +113,37 @@ def adamw(lr: Callable, *, b1: float = 0.9, b2: float = 0.95,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": _map(zeros, params), "v": _map(zeros, params)}
 
-    @torch.no_grad()
-    def update(grads, state, params, step, scale=None):
+    def scalars(step):
+        """The bias corrections and -lr of ``step``, as float32 values."""
         step_f = np.float32(step) + np.float32(1.0)
         bc1 = np.float32(1.0) - np.float32(b1) ** step_f
         bc2 = np.float32(1.0) - np.float32(b2) ** step_f
-        neg_lr = -np.float32(lr(step))
+        return bc1, bc2, -np.float32(lr(step))
+
+    @torch.no_grad()
+    def update(grads, state, params, step, scale=None):
+        bc1, bc2, neg_lr = scalars(step)
 
         def one(g, m, v, p):
-            c1, c2, nlr = (_scalar(x, p) for x in (bc1, bc2, neg_lr))
-            wd = weight_decay * _decay_mask(p)
-            out = torch.empty_like(p)
-            for gg, mm, vv, pp, oo in _pieces(g, m, v, p, out):
-                gg = _grad_f32(gg, scale)
-                mm.mul_(b1).add_((1 - b1) * gg)
-                vv.mul_(b2).add_((1 - b2) * gg * gg)
-                u = (mm / c1) / (torch.sqrt(vv / c2) + eps)
-                u.add_(wd * pp.float())
-                oo.copy_(u.mul_(nlr))
-            return out
+            return adamw_update_reference(
+                g, m, v, p, scale, bc1, bc2, neg_lr, b1=b1, b2=b2, eps=eps,
+                wd=weight_decay * _decay_mask(p))
 
         return _map(one, grads, state["m"], state["v"], params), state
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def step_(grads, state, params, step, scale=None):
+        bc1, bc2, neg_lr = scalars(step)
+        fused = 0
+        for g, m, v, p in zip(*(tree_flatten(t)[0] for t in (
+                grads, state["m"], state["v"], params))):
+            if adamw_ops.adamw_leaf(g, m, v, p, scale, bc1, bc2, neg_lr,
+                                    b1=b1, b2=b2, eps=eps,
+                                    wd=weight_decay * _decay_mask(p)):
+                fused += p.numel()
+        return params, state, fused
+
+    return Optimizer(init, update, step_)
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +179,8 @@ def adafactor(lr: Callable, *, eps1: float = 1e-30, eps2: float = 1e-3,
         lr_v = np.float32(lr(step))
 
         def one(g, st, p):
-            rho, lr_t = _scalar(rho_v, p), _scalar(lr_v, p)
-            g = _grad_f32(g, scale)
+            rho, lr_t = scalar(rho_v, p), scalar(lr_v, p)
+            g = grad_f32(g, scale)
             g2 = g * g + eps1
             if _factored(p):
                 vr = rho * st["vr"] + (1 - rho) * torch.mean(g2, dim=-1)

@@ -28,7 +28,9 @@ import torch
 
 from ..checkpoint.store import tree_flatten
 from ..distributed.sharding import guard_spec
-from .optimizer import Optimizer, apply_updates, clip_factor, global_norm
+from ..kernels.adamw import ops as adamw_ops
+from ..runtime import trace
+from .optimizer import Optimizer, apply_updates, norm_and_clip_factor
 
 __all__ = ["make_train_step", "make_eval_step", "make_accum_steps"]
 
@@ -87,16 +89,30 @@ def _divide(grads, n: int):
 
 
 def _clip_and_apply(optimizer, params, opt_state, grads, step, clip_norm):
-    """Clip (the factor rides into the optimizer), update, apply."""
-    gnorm = torch.zeros((), dtype=torch.float32)
-    scale = None
-    if clip_norm is not None:
-        gnorm = global_norm(grads)
-        scale = clip_factor(gnorm, clip_norm)
-    updates, opt_state = optimizer.update(grads, opt_state, params, step,
-                                          scale=scale)
-    del grads
-    params = apply_updates(params, updates)
+    """Clip (the factor rides into the optimizer), update, apply.  On
+    gradients that lie on the card an optimizer with a ``step`` (AdamW)
+    updates and applies in one pass a leaf; elsewhere ``update`` then
+    ``apply_updates`` run.  One ``train.optimizer`` span: ``impl`` ("cuda"
+    where the update kernel ran), ``elems`` (elements updated) and
+    ``fused_elems`` (those the kernel updated)."""
+    leaves = tree_flatten(grads)[0]
+    with trace.span("train.optimizer") as sp:
+        gnorm = torch.zeros((), dtype=torch.float32)
+        scale = None
+        if clip_norm is not None:
+            gnorm, scale = norm_and_clip_factor(grads, clip_norm)
+        fused = 0
+        if optimizer.step is not None and adamw_ops.impl_of(leaves) == "cuda":
+            params, opt_state, fused = optimizer.step(grads, opt_state, params,
+                                                      step, scale=scale)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  step, scale=scale)
+            params = apply_updates(params, updates)
+        if sp is not None:
+            sp.attrs.update(impl="cuda" if fused else "torch",
+                            elems=sum(g.numel() for g in leaves),
+                            fused_elems=fused)
     return params, opt_state, gnorm
 
 

@@ -14,7 +14,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / f"{name}_torch.py"
     for name in ("quickstart", "cluster_study", "serve_batch", "train_100m")] + [
     ROOT / "tests" / f"test_torch_card_{name}.py"
-    for name in ("kernels", "auction", "models")]
+    for name in ("kernels", "auction", "models", "adamw")]
 
 
 def _imported_modules(path: Path):
@@ -190,13 +190,14 @@ def test_missing_toolkit_is_a_plain_error(monkeypatch, tmp_path):
 def test_every_kernel_source_has_a_wrapper():
     """Each csrc/*.cu is loaded by a kernel.py, and every C function the
     wrapper binds is defined in that source."""
+    from repro_torch.kernels.adamw import kernel as kadamw
     from repro_torch.kernels.flash_attention import kernel as k4
     from repro_torch.kernels.jasda_score import kernel as k1
     from repro_torch.kernels.linear_scan import kernel as k5
     from repro_torch.kernels.wis_dp import kernel as k2
 
-    wrappers = {"flash_attention": k4, "jasda_score": k1, "linear_scan": k5,
-                "wis_batch": k2}
+    wrappers = {"adamw": kadamw, "flash_attention": k4, "jasda_score": k1,
+                "linear_scan": k5, "wis_batch": k2}
     sources = sorted(p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu"))
     assert sources == sorted(wrappers)
     for name, mod in wrappers.items():

@@ -36,6 +36,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint.store import tree_flatten  # noqa: E402
 from repro_torch.configs import info, reduced  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticTokens, prefetch  # noqa: E402
+from repro_torch.kernels.adamw import ref as adamw_ref  # noqa: E402
 from repro_torch.distributed import compress, decompress, init_error  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.training import (adafactor, adamw, apply_updates,  # noqa: E402
@@ -175,8 +176,8 @@ def test_bf16_clip_is_float32_as_in_the_reference():
 
 def test_pieces_cut_the_leading_axis(monkeypatch):
     """AdamW and the norm over pieces of a leaf equal them over the whole
-    leaf: force pieces of one row."""
-    monkeypatch.setattr(opt_mod, "CHUNK", 1)
+    leaf: force pieces of one row (the plain versions' ``CHUNK``)."""
+    monkeypatch.setattr(adamw_ref, "CHUNK", 1)
     ref_opt = ref_adamw(ref_constant(1e-2))
     opt = adamw(constant(1e-2))
     rp, pp = _jnp(_params(2)), convert.model_params(_params(2), device="cpu")
